@@ -9,9 +9,14 @@ conf, 4 flip views), default mesh (lc 7) and the default simulation
 holds every hand-written kernel against its plain PyTorch version.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
-  env       torch / CUDA versions, the card, the kernel and native builds
+  env       torch / CUDA versions, the card, the kernel and native builds,
+            ptxas' registers / shared memory / spills of each CUDA kernel
   kernel_pip  the point-in-polygon kernel vs its plain version at the main
-            path's width (Q 32768, C 32, P 512) and on known points
+            path's width (Q 32768, C 32, P 512) on random polygons, where
+            every edge is live (the dense worst case), and on known points;
+            its prologue's live-edge list vs a plain selection
+  kernel_pip  the same on edge cases: level edges, points level with a
+            vertex, signed zeros, dead polygons, NaN, odd C / P / Q
   mesh      create_mesh on tests/data/real_slice_polygons.txt at lc 10:
             exact node / triangle / class goldens, kernel launched
   fem       spectral solve on that mesh vs the float64-oracle goldens
@@ -52,6 +57,9 @@ PEAK_BYTES = 3.35e12
 PIP_OPS_PER_PAIR = 7
 # terms of one edge, whatever the point: x2 - x1, y2 - y1 and dy == 0
 PIP_OPS_PER_EDGE = 3
+# the fp32 peak counts a fused multiply-add as two operations; none of the
+# crossing's operations may fuse, so they issue at half the peak at best
+PIP_ISSUE_SHARE = 0.5
 
 GOLD_NODES, GOLD_TRIS = 2107, 4041
 GOLD_HIST = {0: 243, 1: 563, 2: 1669, 3: 1565, 4: 1}
@@ -82,7 +90,8 @@ def gpu_name_and_limit() -> str:
 
 
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median device time of ``fn()`` in ms, from CUDA events."""
+    """Median time of one ``fn()`` in ms between two CUDA events: device
+    time, or the host's time to enqueue the call where that is longer."""
     import torch
 
     for _ in range(warmup):
@@ -99,12 +108,69 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def pip_bound_ms(q: int, c: int, p: int) -> tuple:
-    ops = q * c * p * PIP_OPS_PER_PAIR + c * p * PIP_OPS_PER_EDGE
+def device_ms(fn, n: int = 50, rounds: int = 5) -> float:
+    """Device time of one ``fn()`` in ms when calls follow one another.
+
+    A call of a few microseconds takes the host longer to enqueue than the
+    device to run, and two events around it time the host. So the device
+    is first kept busy with a spin kernel while ``n`` calls are queued
+    behind it; the two events around those calls then see device time
+    alone. Median of ``rounds``."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    spin_cycles = int(max(2 * host_s, 2e-3) * 2e9)  # clock under 2 GHz
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    return float(np.median(times))
+
+
+def pip_bound_ms(q: int, c: int, p: int, edges: int) -> tuple:
+    """Least time for ``edges`` edges per point (c * p: every edge), the
+    per-edge terms of all c * p edges, and each byte moved once."""
+    ops = q * edges * PIP_OPS_PER_PAIR + c * p * PIP_OPS_PER_EDGE
     nbytes = q * 2 * 4 + c * p * 2 * 4 + q * c
     t_ops, t_bytes = ops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def ptxas_figures(log: str) -> list:
+    """Registers, shared memory and spills of each kernel, from the lines
+    ``nvcc -Xptxas -v`` printed."""
+    import re
+
+    figures = []
+    for name, body in re.findall(
+            r"Compiling entry function '(\w+)'(.*?)(?=ptxas info\s*: Compiling|\Z)",
+            log, flags=re.S):
+        used = re.search(r"Used (\d+) registers", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          body)
+        kernel = re.search(r"pip_[a-z]+_kernel(ILi\d+E)?", name)
+        figures.append(dict(
+            kernel=kernel.group(0) if kernel else name,
+            registers=int(used.group(1)) if used else None,
+            smem_bytes=int(smem.group(1)) if smem else 0,
+            spill_stores=int(spill.group(1)) if spill else None,
+            spill_loads=int(spill.group(2)) if spill else None))
+    return figures
 
 
 def phase_env():
@@ -122,10 +188,12 @@ def phase_env():
         libs = [f.result() for f in futures]
     build_s = time.perf_counter() - t0
     check(all(lib is not None for lib in libs), "a native library did not build")
+    ptxas = ptxas_figures(pip.kernel_build_log())
+    check(len(ptxas) >= 3, f"ptxas reported {len(ptxas)} kernels")
     emit("env", torch=torch.__version__, cuda=torch.version.cuda,
          python=sys.version.split()[0], device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), gpu=gpu_name_and_limit(),
-         build_s=round(build_s, 3), nvcc_flags=pip.NVCC_FLAGS)
+         build_s=round(build_s, 3), nvcc_flags=pip.NVCC_FLAGS, ptxas=ptxas)
 
 
 def _random_polys(rng, c: int, p: int) -> np.ndarray:
@@ -135,9 +203,39 @@ def _random_polys(rng, c: int, p: int) -> np.ndarray:
     return centres + np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)
 
 
-def compare_pip(points, polys) -> dict:
+def _sorted_rows(rows) -> np.ndarray:
+    """Rows of a float32 matrix as bit patterns, sorted: equal sets of rows
+    give equal arrays, NaN and -0.0 included."""
+    bits = np.ascontiguousarray(rows.cpu().numpy()).view(np.int32)
+    return bits[np.lexsort(bits.T[::-1])]
+
+
+def check_live_edges(polys) -> int:
+    """The prologue's live-edge list vs the plain selection y2 != y1 of the
+    same polygons: equal offsets, and per polygon the same set of records
+    (their order inside a polygon is free). Returns the number of
+    records."""
+    import torch
+
+    from eitx_torch.mesh import pip
+
+    records, offsets = pip.live_edges(polys)
+    want_records, want_offsets = pip.live_edges_ref(polys)
+    torch.cuda.synchronize()
+    check(torch.equal(offsets, want_offsets), "live-edge offsets differ")
+    bounds = offsets.tolist()
+    for c in range(polys.shape[0]):
+        lo, hi = bounds[c], bounds[c + 1]
+        check(np.array_equal(_sorted_rows(records[lo:hi]),
+                             _sorted_rows(want_records[lo:hi])),
+              f"live edges of polygon {c} differ")
+    return bounds[-1]
+
+
+def compare_pip(points, polys, timed: bool = True) -> dict:
     """Kernel vs plain version on the same inputs: every element must
-    agree. Returns the comparison's numbers."""
+    agree, and the prologue's list must be the plain selection. Returns the
+    comparison's numbers, with times where ``timed``."""
     import torch
 
     from eitx_torch.mesh import pip
@@ -147,9 +245,19 @@ def compare_pip(points, polys) -> dict:
     torch.cuda.synchronize()
     err = int((got.to(torch.int8) - ref.to(torch.int8)).abs().max().item())
     check(torch.equal(got, ref), "pip kernel disagrees with its plain version")
+    list_edges = check_live_edges(polys)
     q, (c, p) = points.shape[0], polys.shape[:2]
-    bound, bound_by, ops, nbytes = pip_bound_ms(q, c, p)
-    ms = cuda_ms(lambda: pip.points_in_polys(points, polys))
+    if not timed:
+        return dict(shape=[q, c, p], max_abs_err=err, list_edges=list_edges,
+                    inside_fraction=float(ref.float().mean().item()))
+    bound, bound_by, ops, nbytes = pip_bound_ms(q, c, p, c * p)
+    live_bound, live_by, live_ops, _ = pip_bound_ms(q, c, p, list_edges)
+    # device time with calls queued back to back: a call this short takes
+    # the host longer to enqueue than the device to run
+    ms = device_ms(lambda: pip.points_in_polys(points, polys))
+    prologue_ms = device_ms(lambda: pip.live_edges_padded(polys))
+    # one call between two events, the host's enqueue time included
+    call_ms = cuda_ms(lambda: pip.points_in_polys(points, polys))
     plain_ms = cuda_ms(lambda: pip.points_in_polys_ref(points, polys),
                        reps=5, warmup=1)
     # edges of nonzero length on polygons inside the scene: the tests the
@@ -157,11 +265,17 @@ def compare_pip(points, polys) -> dict:
     # repeat the last one)
     live = polys[:, :, 0] > -1e6
     moved = (torch.roll(polys, -1, dims=1) != polys).any(dim=2)
-    return dict(shape=[q, c, p], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+    return dict(shape=[q, c, p], max_abs_err=err, ms=ms, call_ms=call_ms,
+                prologue_ms=prologue_ms, plain_ms=plain_ms,
                 bound_ms=bound, bound_by=bound_by, ops=ops, bytes=nbytes,
+                issue_bound_ms=bound / PIP_ISSUE_SHARE
+                if bound_by == "operations" else bound,
+                live_bound_ms=live_bound, live_bound_by=live_by,
+                live_ops=live_ops,
                 inside_fraction=float(ref.float().mean().item()),
                 live_polygons=int(live[:, 0].sum().item()),
-                live_edges=int((live & moved).sum().item()))
+                live_edges=int((live & moved).sum().item()),
+                list_edges=list_edges)
 
 
 def phase_kernel(dev):
@@ -184,6 +298,89 @@ def phase_kernel(dev):
     )[:, 0].tolist()
     check(known == [True, False, False, True], f"known points gave {known}")
     emit("kernel_pip", inputs="random", known_points_ok=True, **res)
+
+
+def pip_edge_cases() -> list:
+    """(name, points (Q, 2), polys (C, P, 2)) float32 arrays that press on
+    the kernel's rules: what the prologue drops, where the straddle test
+    ties (signed zeros included) and the shapes its tiles and passes do not
+    divide."""
+    rng = np.random.default_rng(5)
+
+    def pts(q, lo=0.0, hi=512.0):
+        return rng.uniform(lo, hi, (q, 2)).astype(np.float32)
+
+    def polys(c, p):
+        return _random_polys(rng, c, p).astype(np.float32)
+
+    cases = []
+    # stairs on an integer grid: every other edge is level; points on the
+    # grid (level with vertices, on edges) and between its lines
+    stairs = np.array([[0, 0], [6, 0], [6, 2], [4, 2], [4, 4], [2, 4],
+                       [2, 6], [0, 6]], np.float32)
+    grid = np.stack(np.meshgrid(np.arange(-1, 8, 0.5), np.arange(-1, 8, 0.5)),
+                    -1).reshape(-1, 2).astype(np.float32)
+    cases.append(("level edges", grid,
+                  np.stack([stairs, stairs[::-1] + 1, stairs * 0.5 + 3])))
+    # points whose y is exactly a vertex's y
+    ring = polys(3, 64)
+    level = pts(192)
+    level[:, 1] = ring[:, :, 1].reshape(-1)
+    cases.append(("points level with a vertex", level, ring))
+    # a polygon whose vertices are all equal, between live ones; -0.0 / 0.0
+    mixed = polys(4, 32)
+    mixed[1] = mixed[1, :1]
+    mixed[2, :, 1] = np.where(np.arange(32) % 2 == 0, 0.0, -0.0)
+    cases.append(("all-equal and level polygons", pts(1000), mixed))
+    # signed zeros: points at y = -0.0 and +0.0 against rings round the
+    # origin whose vertices near the axis are snapped to +0.0 and -0.0
+    # (0.0 > -0.0 is false: a point level with a vertex, whatever the
+    # signs)
+    zeros = polys(6, 64) * 0.01 - rng.uniform(1.0, 4.0, (6, 1, 2)).astype(
+        np.float32)
+    near = np.abs(zeros[:, :, 1]) < 0.3
+    zeros[:, :, 1] = np.where(
+        near, np.where(np.arange(64) % 2 == 0, 0.0, -0.0), zeros[:, :, 1])
+    on_axis = pts(1024, -6.0, 2.0)
+    # three of four points on the axis; the fourth widens its warp's reach
+    on_axis[:, 1] = np.where(np.arange(1024) % 4 == 3, on_axis[:, 1] / 3.0,
+                             np.where(np.arange(1024) % 2 == 0, -0.0, 0.0))
+    cases.append(("signed zeros", on_axis, zeros.astype(np.float32)))
+    # every polygon dead: the caller's far-away padding, and level ones
+    dead = np.full((8, 64, 2), -1e7, np.float32)
+    dead[4:, :, 0] = rng.uniform(0, 512, (4, 64))
+    dead[4:, :, 1] = 100.0
+    cases.append(("every polygon dead", pts(1000), dead))
+    # the caller's padding around real rings
+    padded = np.full((8, 64, 2), -1e7, np.float32)
+    padded[:3, :40] = polys(3, 40)
+    padded[:3, 40:] = padded[:3, 39:40]
+    cases.append(("padded buckets", pts(1000), padded))
+    # NaN and infinite coordinates: every comparison with a NaN is false
+    odd = polys(3, 16)
+    odd[0, 3, 1] = np.nan
+    odd[1, 5, 0] = np.nan
+    odd[2, 2] = [np.inf, -np.inf]
+    odd[2, 9, 1] = np.inf
+    strange = pts(256)
+    strange[:4] = [[np.nan, 200.0], [200.0, np.nan], [np.inf, 200.0],
+                   [200.0, -np.inf]]
+    cases.append(("NaN and infinite coordinates", strange, odd))
+    for c, p, q in [(1, 4, 5), (1, 700, 1000), (40, 4, 1000), (40, 700, 1000),
+                    (48, 33, 129), (3, 64, 70001), (3, 64, 140003)]:
+        cases.append((f"C {c}, P {p}, Q {q}", pts(q), polys(c, p)))
+    return cases
+
+
+def phase_edge_cases(dev):
+    import torch
+
+    results = []
+    for name, points, polys in pip_edge_cases():
+        res = compare_pip(torch.as_tensor(points, device=dev),
+                          torch.as_tensor(polys, device=dev), timed=False)
+        results.append(dict(case=name, **res))
+    emit("kernel_pip", inputs="edge cases", cases=results)
 
 
 def real_polygons():
@@ -377,6 +574,7 @@ def main() -> int:
 
     phase_env()
     phase_kernel(dev)
+    phase_edge_cases(dev)
     mesh = phase_mesh(dev)
     phase_fem(dev, mesh)
     launches, (points, polys) = phase_pipeline(dev, image)
@@ -391,7 +589,11 @@ def main() -> int:
         "replaces": "eitx/mesh/pallas_pip.py:37",
         "launches": launches,
         "max_abs_err": main_path["max_abs_err"],
+        # device time of a call, calls queued back to back; call_ms is one
+        # call between two events, which for a call this short is the
+        # host's time to enqueue it
         "ms": main_path["ms"],
+        "call_ms": main_path["call_ms"],
         "plain_ms": main_path["plain_ms"],
         "bound_ms": main_path["bound_ms"],
         "bound_by": main_path["bound_by"],

@@ -6,7 +6,9 @@ hash of the source text and the compiler command, so an edited source or
 a changed flag rebuilds, and an unchanged one is reused. The build writes
 to a temporary name and renames it into place, so processes that build
 the same library at once (parallel test workers) never load a half-written
-file.
+file. What the compiler printed (``nvcc -Xptxas -v`` reports each kernel's
+registers, shared memory and spills there) is kept beside the library as
+``<library>.log``.
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ def build_shared(src: str, stem: str, compiler: Sequence[str],
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        subprocess.run(
+        done = subprocess.run(
             [*compiler, "-o", tmp, src],
             check=True, capture_output=True, text=True, timeout=timeout,
         )
+        with open(so + ".log", "w") as fh:
+            fh.write(done.stdout + done.stderr)
         os.replace(tmp, so)
     finally:
         if os.path.exists(tmp):

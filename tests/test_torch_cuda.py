@@ -10,6 +10,7 @@ neither JAX nor eitx, so it also runs where only the port is installed:
 
 import collections
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -17,6 +18,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(ROOT, "tests", "data")
+
+sys.path.insert(0, ROOT)
+import chip_smoke  # noqa: E402  (the smoke run's edge cases and list check)
+
+EDGE_CASES = {name: (pts, polys)
+              for name, pts, polys in chip_smoke.pip_edge_cases()}
 
 pytestmark = pytest.mark.cuda
 
@@ -35,21 +42,55 @@ def _random_polys(rng, c, p):
     return centres + np.stack([rad * np.cos(ang), rad * np.sin(ang)], -1)
 
 
-@pytest.mark.parametrize("q,c,p", [(32768, 32, 512), (1000, 3, 700),
-                                   (5, 1, 4)])
-def test_pip_kernel_equals_plain_version(dev, q, c, p):
+def _pip_case(case, dev):
+    if isinstance(case, str):
+        pts, polys = EDGE_CASES[case]
+    else:
+        q, c, p = case
+        rng = np.random.default_rng(q + c + p)
+        pts = rng.uniform(0, 512, (q, 2))
+        polys = _random_polys(rng, c, p)
+    return (torch.as_tensor(pts, dtype=torch.float32, device=dev),
+            torch.as_tensor(polys, dtype=torch.float32, device=dev))
+
+
+PIP_CASES = [(32768, 32, 512), (1000, 3, 700), (5, 1, 4), *EDGE_CASES]
+
+
+@pytest.mark.parametrize("case", PIP_CASES, ids=str)
+def test_pip_kernel_equals_plain_version(dev, case):
     from eitx_torch.mesh import pip
 
-    rng = np.random.default_rng(q + c + p)
-    pts = torch.as_tensor(rng.uniform(0, 512, (q, 2)), dtype=torch.float32,
-                          device=dev)
-    polys = torch.as_tensor(_random_polys(rng, c, p), dtype=torch.float32,
-                            device=dev)
+    pts, polys = _pip_case(case, dev)
     before = pip.pip_launches
     got = pip.points_in_polys(pts, polys)
     torch.cuda.synchronize()
     assert pip.pip_launches == before + 1
     assert torch.equal(got, pip.points_in_polys_ref(pts, polys))
+
+
+@pytest.mark.parametrize("case", PIP_CASES, ids=str)
+def test_pip_prologue_equals_live_edges_ref(dev, case):
+    from eitx_torch.mesh import pip
+
+    _, polys = _pip_case(case, dev)
+    before = pip.live_edges_launches
+    records = chip_smoke.check_live_edges(polys)  # raises where they differ
+    assert pip.live_edges_launches == before + 1
+    assert records == int((torch.roll(polys[:, :, 1], -1, 1)
+                           != polys[:, :, 1]).sum())
+
+
+def test_pip_kernel_takes_only_aligned_contiguous_tensors(dev):
+    from eitx_torch.mesh import pip
+
+    pts = torch.zeros((8, 2), device=dev)
+    polys = torch.zeros((2, 4, 2), device=dev)
+    shifted = torch.zeros(17, device=dev)[1:].view(8, 2)  # 4-byte aligned
+    for bad_pts, bad_polys in [(shifted, polys), (pts, polys.transpose(0, 1)),
+                               (pts, shifted.view(2, 4, 2))]:
+        with pytest.raises(ValueError):
+            pip.points_in_polys(bad_pts, bad_polys)
 
 
 def test_pip_kernel_known_points(dev):
