@@ -2,11 +2,18 @@
 
     python3 chip_smoke.py
 
-Drives eitx_torch's main path — ``Pipeline.run_jpg_png`` on a 512x512
-axial slice with the trained YOLOv11-n tissue segmenter (bf16, per-class
-conf, 4 flip views), default mesh (lc 7) and the default simulation
-(16 electrodes, 100 points x 12 breaths, low-rank spectral solve) — and
-holds every hand-written kernel against its plain PyTorch version.
+Drives eitx_torch's main paths and holds every hand-written kernel against
+its plain PyTorch version:
+  - ``Pipeline.run_jpg_png`` on a 512x512 axial slice with the trained
+    YOLOv11-n tissue segmenter (bf16, per-class conf, 4 flip views),
+    default mesh (lc 7) and the default simulation (16 electrodes, 100
+    points x 12 breaths, low-rank spectral solve);
+  - ``Pipeline.run_dicom_sequences_auto`` on a thoracic CT series of 512
+    slices of 512x512 int16 (~268 MB of pixels, made from a seed and
+    zipped in memory): ingest, frontal view, the trained rib detector,
+    slice selection, HU window and body mask, then the same tail;
+  - one request each of the custom-offset, DICOM-frame, NIfTI and
+    zipped-image modes.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -28,25 +35,46 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             gave it in request 1
   labels    the segmenter in float32 (TF32 off) vs the JAX package's
             float32 labels committed in tests/data/torch_smoke_512.npz
-Then the kernels line, the card's name and power limit, and the result
-line. Imports nothing of JAX or of the JAX package.
+  image     body mask (both flips), HU window and min-max normalization of
+            a 512x512 HU phantom: the card vs the same code on the CPU,
+            equal on every pixel; the body mask's time, its labelling and
+            flood steps
+  ribs      the rib detector at the serving settings and in float32 (TF32
+            off) vs the JAX package's boxes and slice pick committed in
+            tests/data/torch_series_512.npz
+  series    three run_dicom_sequences_auto requests on the 512-slice
+            series: the fixture's pick and body mask, spans, byte-equal
+            .dat files, one kernel launch per request; a profiled fourth
+  modes     run_dicom_sequences_custom (offset 1), run_dicom_frame,
+            run_nii, run_jpg_png_zip: success and .dat shape
+Every phase prints its seconds. Then the kernels line, the card's name
+and power limit, and the result line. Imports nothing of JAX or of the
+JAX package.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
+import io
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 DATA = os.path.join(ROOT, "tests", "data")
+WEIGHTS = os.path.join(ROOT, "weights")
+# the series of the rib and series phases: torch_series_phantom.
+# series_volume(SERIES_SEED, 512, 512); tests/data/torch_series_512.npz
+# holds the JAX package's answers for it
+SERIES_SLICES = SERIES_SIZE = 512
 
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -426,35 +454,47 @@ def phase_fem(dev, mesh):
          rel_sum=float(rel_sum), rel_absmax=float(rel_max), s=dt)
 
 
+@contextlib.contextmanager
+def recorded_pip_inputs():
+    """While open, keeps the (points, polys) of the first call the triangle
+    classifier makes to the kernel's wrapper; yields the list they land
+    in."""
+    import eitx_torch.mesh.classify as classify
+
+    recorded = []
+    launch = classify.points_in_polys
+
+    def record(points, polys):
+        if not recorded:
+            recorded.append((points.clone(), polys.clone()))
+        return launch(points, polys)
+
+    classify.points_in_polys = record
+    try:
+        yield recorded
+    finally:
+        classify.points_in_polys = launch
+
+
 def phase_pipeline(dev, image):
     import torch
 
-    import eitx_torch.mesh.classify as classify
     from eitx_torch.core.config import ModelConfig, PipelineConfig
     from eitx_torch.core.timing import Timer
     from eitx_torch.fem.forward import write_dat
     from eitx_torch.mesh import pip
     from eitx_torch.pipeline import Pipeline
 
-    recorded = []
-    launch = classify.points_in_polys
-
-    def record(points, polys):  # keeps the first request's kernel inputs
-        if not recorded:
-            recorded.append((points.clone(), polys.clone()))
-        return launch(points, polys)
-
     with tempfile.TemporaryDirectory() as results:
         cfg = PipelineConfig(
             model=ModelConfig(axial_weights_512=os.path.join(
-                ROOT, "weights", "tissue_n_512.msgpack")),
+                WEIGHTS, "tissue_n_512.msgpack")),
             results_dir=results,
         )
         t0 = time.perf_counter()
         pipe = Pipeline(cfg, device=dev)
         load_s = time.perf_counter() - t0
-        classify.points_in_polys = record
-        try:
+        with recorded_pip_inputs() as recorded:
             pip.pip_launches = 0
             answers, spans, walls = [], [], []
             for _ in range(3):
@@ -465,11 +505,9 @@ def phase_pipeline(dev, image):
                 walls.append(time.perf_counter() - t0)
                 spans.append(timer.as_dict())
             launches = pip.pip_launches
-        finally:
-            classify.points_in_polys = launch
         dats = [open(a["saved_file_name"], "rb").read() for a in answers]
         v = np.loadtxt(answers[0]["saved_file_name"])
-        profile = profiled_request(pipe, image)
+        profile = profiled_request(lambda: pipe.run_jpg_png(image))
         t0 = time.perf_counter()
         write_dat(os.path.join(results, "probe.dat"), v[:100], n_repeats=12)
         profile["write_dat_1200_rows_s"] = time.perf_counter() - t0
@@ -504,17 +542,17 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def profiled_request(pipe, image) -> dict:
-    """One more warm request under torch.profiler: its wall time, the
-    device's busy time, the idle share and the ten device kernels with the
-    most time. Runs after the kernel counts are read."""
+def profiled_request(request) -> dict:
+    """One more warm request (``request()``) under torch.profiler: its
+    wall time, the device's busy time, the idle share and the ten device
+    kernels with the most time. Runs after the kernel counts are read."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.run_jpg_png(image)
+        request()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.events()
@@ -533,31 +571,271 @@ def profiled_request(pipe, image) -> dict:
 
 
 def phase_labels(dev, image, ref_labels):
-    import torch
-
     from eitx_torch.core.config import ModelConfig
     from eitx_torch.models.yolo.infer import TissueSegmenter
 
     m = ModelConfig()
     seg = TissueSegmenter(
-        512, weights=os.path.join(ROOT, "weights", "tissue_n_512.msgpack"),
+        512, weights=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
         conf=m.axial_conf_per_class, max_det=m.max_detections,
         tta_fill=m.axial_tta_fill, dtype="float32", device=dev,
     )
-    flags = []  # TF32 settings seen by each forward pass of the network
-    hook = seg.model.register_forward_pre_hook(lambda *_: flags.append(
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32)))
-    try:
-        labels, _ = seg.predict_labels(image)
-    finally:
-        hook.remove()
+    (labels, _), flags = tf32_flags_of(
+        seg.model, lambda: seg.predict_labels(image))
     check(flags and not any(a or b for a, b in flags),
           f"float32 inference ran with TF32 settings {flags}")
     agree = float((labels == ref_labels).mean())
     check(agree >= 0.99, f"float32 label agreement {agree}")
     emit("labels", dtype="float32", agreement=agree, forward_passes=len(flags),
          classes=sorted(int(c) for c in np.unique(labels)))
+
+
+def tf32_flags_of(network, run):
+    """``run()`` with a hook on ``network`` that notes the TF32 settings
+    each forward pass sees; returns (result, flags)."""
+    import torch
+
+    flags = []
+    hook = network.register_forward_pre_hook(lambda *_: flags.append(
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32)))
+    try:
+        return run(), flags
+    finally:
+        hook.remove()
+
+
+def count_fixpoint_steps(run) -> tuple:
+    """``run()`` with the image package's fixpoint loops counted: returns
+    (result, steps of each loop in the order they ran)."""
+    import eitx_torch.image.cc as cc
+
+    steps = []
+    inner = cc.fixpoint
+
+    def counting(step, x):
+        steps.append(0)
+
+        def counted(y):
+            steps[-1] += 1
+            return step(y)
+
+        return inner(counted, x)
+
+    cc.fixpoint = counting
+    try:
+        return run(), steps
+    finally:
+        cc.fixpoint = inner
+
+
+def phase_image(dev):
+    """CT preprocessing on the card against the same code on the CPU."""
+    import torch
+
+    from eitx_torch.image import (
+        body_mask_from_hu,
+        minmax_normalize_u8,
+        window_normalize,
+    )
+    from torch_series_phantom import thorax_hu
+
+    rng = np.random.default_rng(11)
+    hu = thorax_hu(rng, 512) + rng.normal(0, 12.0, (512, 512)).astype(
+        np.float32)
+    hu[480:486, 60:450] = 200.0  # a CT-table strip, which the mask drops
+    cpu = torch.device("cpu")
+    checks = {
+        "body_mask": lambda d: body_mask_from_hu(hu, device=d),
+        "body_mask_flipud": lambda d: body_mask_from_hu(hu, flipud=True,
+                                                        device=d),
+        "window_normalize": lambda d: window_normalize(hu, device=d),
+        # whole-numbered HU, as a scanner stores them: the exact quotient
+        # is an integer on every 80th value, where a rounding shows
+        "window_normalize_int16": lambda d: window_normalize(
+            np.rint(hu).astype(np.int16), device=d),
+        "minmax_normalize_u8": lambda d: minmax_normalize_u8(hu, device=d),
+        "minmax_normalize_u8_int16": lambda d: minmax_normalize_u8(
+            np.rint(hu).astype(np.int16), device=d),
+    }
+    for name, fn in checks.items():
+        on_card = fn(dev)
+        check(on_card.device.type == "cuda", f"{name} did not run on the card")
+        check(torch.equal(on_card.cpu(), fn(cpu)),
+              f"{name}: the card and the CPU differ")
+    mask, steps = count_fixpoint_steps(lambda: checks["body_mask"](dev))
+    check(len(steps) == 2, f"body mask ran {len(steps)} fixpoint loops")
+    body_px = int((mask > 0).sum().item())
+    check(0.25 < body_px / mask.numel() < 0.45 and not bool(mask[483, 200]),
+          f"body mask holds {body_px} pixels")
+    hu_dev = torch.as_tensor(hu, device=dev)
+    emit("image", equal_to_cpu=sorted(checks), body_pixels=body_px,
+         labelling_steps=steps[0], flood_steps=steps[1],
+         body_mask_ms=cuda_ms(lambda: body_mask_from_hu(hu_dev), reps=5,
+                              warmup=1),
+         window_normalize_ms=cuda_ms(lambda: window_normalize(hu_dev)),
+         minmax_normalize_ms=cuda_ms(lambda: minmax_normalize_u8(hu_dev)))
+
+
+def phase_ribs(dev, front, fixture):
+    """The trained rib detector on the series' frontal view against the
+    JAX package's boxes and slice pick, at the serving dtype and in
+    float32; both run float32 arithmetic with TF32 off."""
+    from eitx_torch.core.config import ModelConfig
+    from eitx_torch.models.yolo.infer import RibsDetector
+    from eitx_torch.select import select_axial_slice_number
+
+    m = ModelConfig()
+    results = {}
+    for name, dtype in (("serving", m.dtype), ("f32", "float32")):
+        det = RibsDetector(
+            weights=os.path.join(WEIGHTS, "ribs_n_640.msgpack"),
+            conf=m.ribs_conf, max_det=m.max_detections, dtype=dtype,
+            device=dev)
+        got, flags = tf32_flags_of(det._float32_network(),
+                                   lambda: det.predict(front))
+        check(flags and not any(a or b for a, b in flags),
+              f"the detector ran with TF32 settings {flags}")
+        want_boxes, want_valid = fixture[f"boxes_{name}"], fixture[f"valid_{name}"]
+        check(int(got.valid.sum()) == int(want_valid.sum()),
+              f"{name}: {int(got.valid.sum())} boxes, the reference has "
+              f"{int(want_valid.sum())}")
+        check(np.array_equal(got.valid, want_valid), f"{name}: valid slots")
+        err = float(np.abs(got.boxes - want_boxes).max())
+        check(err <= 0.5, f"{name}: boxes off by {err} px")
+        pick = select_axial_slice_number(got.boxes[got.valid], 0,
+                                         image_width=front.shape[1])
+        check(pick == fixture[f"pick_{name}"].tolist(),
+              f"{name}: pick {pick}")
+        results[name] = dict(
+            dtype=dtype, valid=int(got.valid.sum()), max_box_err_px=err,
+            pick=pick, predict_ms=cuda_ms(lambda: det.predict(front), reps=5,
+                                          warmup=1))
+    emit("ribs", **results)
+
+
+def _zip_bytes(name: str, data: bytes) -> io.BytesIO:
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED) as zf:
+        zf.writestr(name, data)
+    return buf
+
+
+def _check_dat(answer, what: str) -> np.ndarray:
+    check(answer["status"] == "success", f"{what}: request failed")
+    v = np.loadtxt(answer["saved_file_name"])
+    check(v.shape == (1200, 208) and np.isfinite(v).all(),
+          f"{what}: .dat {v.shape}")
+    return v
+
+
+def phase_series(dev, vol, fixture, image_512):
+    """The series mode at full width, then one request of each other
+    container mode. Returns the kernel launches of the counted requests
+    and the kernel's inputs in the first series request."""
+    import torch
+
+    from eitx_torch.core.config import ModelConfig, PipelineConfig
+    from eitx_torch.core.timing import Timer
+    from eitx_torch.io import to_png_bytes, write_dicom, write_nifti
+    from eitx_torch.mesh import pip
+    from eitx_torch.pipeline import Pipeline
+    from torch_series_phantom import series_volume, series_zip
+
+    t0 = time.perf_counter()
+    series = series_zip(vol, write_dicom)
+    zip_s = time.perf_counter() - t0
+    picked = []  # (instance number, body image, body mask) of each request
+
+    with tempfile.TemporaryDirectory() as results:
+        pipe = Pipeline(PipelineConfig(
+            model=ModelConfig(
+                ribs_weights=os.path.join(WEIGHTS, "ribs_n_640.msgpack"),
+                axial_weights_512=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
+                axial_weights_256=os.path.join(WEIGHTS, "tissue_n_256.msgpack"),
+            ),
+            results_dir=results,
+        ), device=dev)
+        preprocess = pipe._axial_from_dicom_slice
+
+        def record(ds):
+            body, mask, spacing = preprocess(ds)
+            picked.append((ds.instance_number, body, mask))
+            return body, mask, spacing
+
+        pipe._axial_from_dicom_slice = record
+        torch.cuda.reset_peak_memory_stats()
+        with recorded_pip_inputs() as recorded:
+            pip.pip_launches = 0
+            answers, spans, walls = [], [], []
+            for _ in range(3):
+                timer = Timer()
+                t0 = time.perf_counter()
+                answers.append(pipe.run_dicom_sequences_auto(series,
+                                                             timer=timer))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                spans.append(timer.as_dict())
+            launches = pip.pip_launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        check(launches == 3,
+              f"pip kernel launched {launches} times in 3 series requests")
+        dats = [open(a["saved_file_name"], "rb").read() for a in answers]
+        _check_dat(answers[0], "series")
+        check(dats[0] == dats[1] == dats[2],
+              ".dat files differ between series requests")
+        want_number = int(fixture["slice_index"]) + 1
+        for number, body, mask in picked:
+            check(number == want_number,
+                  f"picked slice {number}, the reference picks {want_number}")
+            check(np.array_equal(mask, fixture["body_mask"]),
+                  "body mask differs from the reference's")
+            check(np.array_equal(body, fixture["body_image"]),
+                  "windowed body image differs from the reference's")
+        classes = sorted({ln.split()[0] for ln in answers[0]["text_data"][2:]})
+        check(len(classes) >= 2, f"classes {classes}")
+        for sp, wall in zip(spans, walls):
+            check(abs(sum(sp.values()) - wall) < 0.05 * wall,
+                  f"spans {sp} do not add up to the wall time {wall}")
+        emit("series", slices=int(vol.shape[0]), pixel_bytes=int(vol.nbytes),
+             zip_bytes=series.getbuffer().nbytes, zip_s=zip_s,
+             request_s=walls, spans_req2=spans[1], spans_req3=spans[2],
+             picked_slice=want_number, body_mask_equal=True,
+             body_image_equal=True, classes=classes, pip_launches=launches,
+             dat_rows=1200, dat_cols=208, dat_bytes_equal=True,
+             max_memory_gib=peak_gib)
+        emit("profile_series", **profiled_request(
+            lambda: pipe.run_dicom_sequences_auto(series)))
+
+        # the other container modes, one request each
+        t0 = time.perf_counter()
+        pip.pip_launches = 0
+        del picked[:]
+        timers = {name: Timer() for name in ("custom", "frame", "nii", "zip")}
+        _check_dat(pipe.run_dicom_sequences_custom(
+            series_zip(vol, write_dicom, custom_offset=1),
+            timer=timers["custom"]), "custom")
+        check(picked[-1][0] == want_number + 1,
+              f"offset 1 picked slice {picked[-1][0]}")
+        _check_dat(pipe.run_dicom_frame(
+            series_zip(vol[200:203], write_dicom), timer=timers["frame"]),
+            "frame")
+        check(picked[-1][0] == 3, "the frame mode takes the last slice read")
+        small = series_volume(3, 64, 256)  # (64, 256, 256) -> (256, 256, 64)
+        nii = np.ascontiguousarray(small.transpose(2, 1, 0)) - 1024
+        _check_dat(pipe.run_nii(_zip_bytes("scan.nii.gz", write_nifti(
+            nii.astype(np.int16), pixdim=(1.0, 1.4, 1.4, 5.0))),
+            timer=timers["nii"]), "nii")
+        _check_dat(pipe.run_jpg_png_zip(
+            _zip_bytes("slice.png", to_png_bytes(image_512)),
+            timer=timers["zip"]), "zip")
+        torch.cuda.synchronize()
+        check(pip.pip_launches == 4,
+              f"pip kernel launched {pip.pip_launches} times in 4 requests")
+        emit("modes", s=time.perf_counter() - t0,
+             spans={k: t.as_dict() for k, t in timers.items()},
+             pip_launches=pip.pip_launches)
+        return launches + pip.pip_launches, recorded[0]
 
 
 def main() -> int:
@@ -567,20 +845,46 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    sys.path.insert(0, os.path.join(ROOT, "tests"))  # torch_series_phantom
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     fixture = np.load(os.path.join(DATA, "torch_smoke_512.npz"))
     image, ref_labels = fixture["image"], fixture["labels"]
+    series_fixture = np.load(os.path.join(DATA, "torch_series_512.npz"))
 
-    phase_env()
-    phase_kernel(dev)
-    phase_edge_cases(dev)
-    mesh = phase_mesh(dev)
-    phase_fem(dev, mesh)
-    launches, (points, polys) = phase_pipeline(dev, image)
+    def timed(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        torch.cuda.synchronize()
+        emit("seconds", of=phase.__name__, s=time.perf_counter() - t0)
+        return out
+
+    def series_inputs():
+        from eitx_torch.image import minmax_normalize_u8
+        from torch_series_phantom import series_volume
+
+        vol = series_volume(int(series_fixture["seed"]), SERIES_SLICES,
+                            SERIES_SIZE)
+        front = minmax_normalize_u8(vol[:, SERIES_SIZE // 2, :], device=dev)
+        return vol, front.cpu().numpy()
+
+    timed(phase_env)
+    timed(phase_kernel, dev)
+    timed(phase_edge_cases, dev)
+    mesh = timed(phase_mesh, dev)
+    timed(phase_fem, dev, mesh)
+    launches, (points, polys) = timed(phase_pipeline, dev, image)
     main_path = compare_pip(points, polys)
     emit("kernel_pip", inputs="main path, request 1", **main_path)
-    phase_labels(dev, image, ref_labels)
+    timed(phase_labels, dev, image, ref_labels)
+    timed(phase_image, dev)
+    vol, front = timed(series_inputs)
+    timed(phase_ribs, dev, front, series_fixture)
+    series_launches, (points, polys) = timed(phase_series, dev, vol,
+                                             series_fixture, image)
+    launches += series_launches
+    emit("kernel_pip", inputs="series path, request 1",
+         **compare_pip(points, polys, timed=False))
 
     print(json.dumps({"kernels": [{
         "name": "pip",

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import contextlib
 
+import numpy as np
 import torch
 
 
@@ -22,6 +23,25 @@ def resolve_device(device="cuda") -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return dev
+
+
+# numpy types torch has no arithmetic for, and the type that holds them
+_WIDER = {np.dtype(np.uint16): np.int32, np.dtype(np.uint32): np.int64}
+
+
+def to_device(x, device="cuda") -> torch.Tensor:
+    """A tensor as it is (wherever it lives); anything else through numpy
+    to ``device``. Unsigned 16- and 32-bit arrays (a DICOM pixel array may
+    be uint16) are widened on the host before the upload."""
+    if isinstance(x, torch.Tensor):
+        return x
+    arr = np.asarray(x)
+    if arr.dtype in _WIDER:
+        arr = arr.astype(_WIDER[arr.dtype])
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # a view of a file's bytes: torch wants its own
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(resolve_device(device))
 
 
 @contextlib.contextmanager

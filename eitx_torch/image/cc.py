@@ -1,25 +1,21 @@
-"""Connected-component labelling on the device.
+"""Connected components, largest component and hole fill on the device.
 
-Port of ``label_components`` (eitx/image/cc.py:50-84): one 3x3
-label-propagation step followed by two pointer-jumping steps per
-iteration, so convergence takes O(log diameter) iterations rather than
-O(diameter). The reference's ``lax.while_loop`` becomes a Python loop
-that checks for convergence every few steps (``core.fixpoint``).
+Port of eitx/image/cc.py (``label_components`` :50, ``largest_component``
+:87, ``fill_holes`` :100). Labelling is one 3x3 label-propagation step
+followed by two pointer-jumping steps per iteration, so it converges in
+O(log diameter) iterations; the hole fill is a background flood from the
+border that grows one 4-connected ring per step, O(diameter) steps. Each
+``lax.while_loop`` of the reference becomes a Python loop that checks for
+convergence every few steps (``core.fixpoint``).
 """
 
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
+from ..core.device import to_device
 from ..core.fixpoint import fixpoint
-
-def window_max(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
-    """(H, W) float max over a (kh, kw) window centred on each pixel;
-    pixels outside the image are ignored."""
-    return F.max_pool2d(
-        x[None, None], (kh, kw), stride=1, padding=(kh // 2, kw // 2)
-    )[0, 0]
+from .morphology import window_max, window_or
 
 
 def _neighbor_max(
@@ -37,14 +33,15 @@ def _neighbor_max(
     return torch.where(mask, m.to(torch.int32), torch.full_like(lab, -1))
 
 
-def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
+def label_components(mask, connectivity: int = 8,
+                     device="cuda") -> torch.Tensor:
     """(H, W) bool -> (H, W) int32 labels (-1 background).
 
     Labels are root flat-indices: two pixels share a component iff their
     labels match. 8-connectivity by default (cv2.findContours semantics);
     ``connectivity=4`` matches scipy.ndimage.label's default.
     """
-    mask = mask.to(torch.bool)
+    mask = to_device(mask, device).to(torch.bool)
     h, w = mask.shape
     if h * w >= 1 << 24:
         raise ValueError(f"image of {h}x{w} pixels is too large to label")
@@ -63,3 +60,57 @@ def label_components(mask: torch.Tensor, connectivity: int = 8) -> torch.Tensor:
         return jump(jump(_neighbor_max(lab, mask, connectivity)))
 
     return fixpoint(step, lab)
+
+
+def largest_component(mask, device="cuda") -> torch.Tensor:
+    """Keep only the largest 8-connected component of a boolean mask.
+
+    Among components of equal size the one with the least root index
+    stays, which is what the reference's ``jnp.argmax`` (first maximum)
+    picks; ``torch.argmax`` promises no order among ties on CUDA, so the
+    pick is written out. An empty mask gives an empty mask."""
+    mask = to_device(mask, device).to(torch.bool)
+    h, w = mask.shape
+    lab = label_components(mask)
+    flat = lab.reshape(-1)
+    # integer sums: the same in whatever order the device adds them
+    sizes = torch.zeros((h * w,), dtype=torch.int32,
+                        device=mask.device).index_add_(
+        0, flat.clamp(min=0).to(torch.int64), (flat >= 0).to(torch.int32))
+    roots = torch.arange(h * w, dtype=torch.int32, device=mask.device)
+    best = torch.where(sizes == sizes.max(), roots,
+                       torch.full_like(roots, h * w)).min()
+    return lab == best
+
+
+def border_mask(like: torch.Tensor) -> torch.Tensor:
+    """(H, W) bool, True on the outermost rows and columns."""
+    border = torch.zeros_like(like, dtype=torch.bool)
+    border[0, :] = True
+    border[-1, :] = True
+    border[:, 0] = True
+    border[:, -1] = True
+    return border
+
+
+def background_from_border(fg: torch.Tensor) -> torch.Tensor:
+    """Background pixels reachable from the image border.
+
+    A 4-connected flood: the foreground is 8-connected, so by duality its
+    holes are 4-connected background regions; an 8-connected grow would
+    escape through diagonal gaps the outer boundary closes
+    (cv2.drawContours-fill golden, tests/test_cv2_golden.py)."""
+    bg = ~fg
+
+    def grow4(x):
+        return (window_or(x, 1, 3) | window_or(x, 3, 1)) & bg
+
+    return fixpoint(grow4, bg & border_mask(fg))
+
+
+def fill_holes(mask, device="cuda") -> torch.Tensor:
+    """Fill interior holes: anything not reachable from the border through
+    background becomes foreground (drawContours(..., FILLED) parity for
+    the outer contour)."""
+    mask = to_device(mask, device).to(torch.bool)
+    return mask | ~background_from_border(mask)

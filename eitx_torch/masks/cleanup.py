@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..core.fixpoint import fixpoint
-from ..image.cc import label_components, window_max
+from ..image.cc import background_from_border, border_mask, label_components
+from ..image.morphology import window_or
 
 N_CLASSES = 5
 MUSCLE = 1
@@ -42,19 +43,6 @@ def _window_count(x: torch.Tensor) -> torch.Tensor:
     return s.to(torch.int32)
 
 
-def _window_or(x: torch.Tensor, kh: int, kw: int) -> torch.Tensor:
-    return window_max(x.to(torch.float32), kh, kw) > 0
-
-
-def _border(like: torch.Tensor) -> torch.Tensor:
-    border = torch.zeros_like(like, dtype=torch.bool)
-    border[0, :] = True
-    border[-1, :] = True
-    border[:, 0] = True
-    border[:, -1] = True
-    return border
-
-
 def _external_mask(fg: torch.Tensor) -> torch.Tensor:
     """Pixels of components reachable from the image border — i.e. the
     components cv2.findContours(RETR_EXTERNAL) would return.
@@ -63,19 +51,13 @@ def _external_mask(fg: torch.Tensor) -> torch.Tensor:
     RETR_EXTERNAL. Background floods 4-connected from the border (duality
     with 8-connected foreground), then external components are those
     8-adjacent to the reached background."""
-    bg = ~fg
-    border = _border(fg)
-
-    def grow4(x):
-        return (_window_or(x, 1, 3) | _window_or(x, 3, 1)) & bg
-
-    reach = fixpoint(grow4, bg & border)
+    reach = background_from_border(fg)
     # seed: foreground 8-adjacent to reached background (or on the border)
-    touch = _window_or(reach | border, 3, 3) & fg
+    touch = window_or(reach | border_mask(fg), 3, 3) & fg
 
     # propagate the seed through whole components (8-connected)
     def grow8(x):
-        return _window_or(x, 3, 3) & fg
+        return window_or(x, 3, 3) & fg
 
     return fixpoint(grow8, touch)
 

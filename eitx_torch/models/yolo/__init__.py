@@ -1,17 +1,21 @@
 from .checkpoint import flax_to_torch_state, read_msgpack_checkpoint
-from .infer import TissueSegmenter, YoloRunner, letterbox_params
+from .infer import RibsDetector, TissueSegmenter, YoloRunner, letterbox_params
 from .model import YoloV11, yolov11_spec
 from .post import (
     Detections,
     compose_label_image,
     decode_detections,
     nms_batched,
+    postprocess_detect,
+    postprocess_segment,
     postprocess_segment_labels,
+    process_masks,
 )
 
 __all__ = [
     "flax_to_torch_state",
     "read_msgpack_checkpoint",
+    "RibsDetector",
     "TissueSegmenter",
     "YoloRunner",
     "letterbox_params",
@@ -21,5 +25,8 @@ __all__ = [
     "compose_label_image",
     "decode_detections",
     "nms_batched",
+    "postprocess_detect",
+    "postprocess_segment",
     "postprocess_segment_labels",
+    "process_masks",
 ]

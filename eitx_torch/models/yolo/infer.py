@@ -1,19 +1,38 @@
-"""Tissue segmenter: letterbox + network + decode + NMS + label composition.
+"""Rib detector and tissue segmenter: letterbox + network + decode + NMS
+(+ instance masks or label composition).
 
-Port of the segment-labels path of eitx/models/yolo/infer.py
-(``letterbox_params``, ``YoloRunner``, ``TissueSegmenter``). Preprocessing
+Port of eitx/models/yolo/infer.py (``letterbox_params``, ``_prep_batch``,
+``YoloRunner``, ``RibsDetector``, ``TissueSegmenter``). Preprocessing
 (cast, /255, channel replication, letterbox), flip test-time augmentation,
-the network, NMS and mask composition run on ``device``; uint8 frames go
-in and int8 label images come back, then the host un-letterboxes.
+the network, NMS and mask composition run on ``device``. On the
+segment-labels path uint8 frames go in and int8 label images come back,
+then the host un-letterboxes; ``detect`` and ``segment`` return numpy
+detections in the coordinates of the original image.
 
-The rib detector (``RibsDetector``) and the detect/segment outputs that
-only it and the training code use are not ported yet (ROADMAP, queue 1:
-rib detector and series modes).
+Arithmetic type. With ``dtype="bfloat16"`` the two paths compute
+differently in the JAX package, and the port follows each:
+  - ``segment_labels`` casts its input to bfloat16 inside the program and
+    runs the network in bfloat16 (eitx/models/yolo/infer.py:193).
+  - ``detect`` and ``segment`` feed the float32 canvas of ``_prep_batch``
+    to variables that were cast to bfloat16. No module of the flax model
+    sets a ``dtype``, so every layer promotes float32 x bfloat16 to
+    float32: the raw heads come out float32 (checked on the JAX package:
+    ``model.apply(bf16 variables, f32 canvas)`` returns float32 maps).
+    That path is *bfloat16-rounded weights and batch statistics, float32
+    arithmetic*, with one exception: flax's BatchNorm forms its multiplier
+    ``rsqrt(var + eps) * scale`` from the bfloat16 statistics alone, so
+    each of those three operations rounds to bfloat16 before the
+    multiplier meets the float32 activations. A torch module in bfloat16
+    refuses a float32 input, so the port keeps a float32 copy of the
+    network whose weights went through bfloat16 and whose BatchNorm
+    multipliers are folded the same way (``_bf16_rounded_f32_copy``), and
+    runs it with TF32 off.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import time
 from typing import Optional, Tuple
 
@@ -21,11 +40,16 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...core.device import full_f32, resolve_device
+from ...core.device import full_f32, resolve_device, to_device
 from ...core.errors import ModelError
 from .checkpoint import flax_to_torch_state, load_state, read_msgpack_checkpoint
 from .model import YoloV11, yolov11_spec
-from .post import postprocess_segment_labels
+from .post import (
+    Detections,
+    postprocess_detect,
+    postprocess_segment,
+    postprocess_segment_labels,
+)
 
 
 def letterbox_params(h: int, w: int, imgsz: int) -> Tuple[float, int, int]:
@@ -35,6 +59,94 @@ def letterbox_params(h: int, w: int, imgsz: int) -> Tuple[float, int, int]:
     pad_y = (imgsz - nh) // 2
     pad_x = (imgsz - nw) // 2
     return scale, pad_x, pad_y
+
+
+def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) float32 weights of a bilinear resize of one axis with
+    half-pixel centres, the triangle widened by the shrink factor when
+    the axis shrinks (antialiasing) and each row normalized: the matrix
+    ``jax.image.resize(..., "bilinear")`` builds, in its float32 steps.
+    The sample positions ``(i + 0.5) * inv_scale - 0.5`` are rounded once,
+    as the fused multiply-add of the compiled reference rounds them
+    (two roundings move a weight by 1.5e-5 on a 512-pixel axis)."""
+    f32 = np.float32
+    inv_scale = f32(n_in / n_out)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = ((np.arange(n_out, dtype=np.float64) + 0.5)
+              * np.float64(inv_scale) - 0.5).astype(f32)
+    x = np.abs(sample[:, None] - np.arange(n_in, dtype=f32)[None, :])
+    w = np.maximum(f32(0.0), f32(1.0) - x / kernel_scale)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    return w.astype(f32)
+
+
+def _resize_bilinear(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
+    """NCHW bilinear resize as two products with per-axis weight matrices.
+    ``F.interpolate`` computes the same function but rounds its sample
+    positions another way when it antialiases, which shows as 1e-5 on a
+    shrunk 700-pixel axis; the letterbox has to agree with the reference
+    more closely than that."""
+    h, w = x.shape[-2:]
+    wh = torch.from_numpy(_triangle_weights(h, nh)).to(x.device, x.dtype)
+    ww = torch.from_numpy(_triangle_weights(w, nw)).to(x.device, x.dtype)
+    return torch.einsum("ph,bchw,qw->bcpq", wh, x, ww)
+
+
+def _letterbox(x_u8: torch.Tensor, imgsz: int,
+               dtype: torch.dtype) -> torch.Tensor:
+    """uint8 (B, H, W) or (B, H, W, 3) on the device -> (B, 3, imgsz,
+    imgsz) in ``dtype``: /255, grey to three channels, resized to fit and
+    centred on a canvas of 114/255."""
+    b, h, w = x_u8.shape[:3]
+    scale, pad_x, pad_y = letterbox_params(h, w, imgsz)
+    nh, nw = int(round(h * scale)), int(round(w * scale))
+    x = x_u8.to(dtype) / 255.0
+    if x.ndim == 3:
+        x = x[..., None].expand(b, h, w, 3)
+    x = x.permute(0, 3, 1, 2)  # NCHW
+    if (nh, nw) != (h, w):
+        x = _resize_bilinear(x, nh, nw)
+    if (nh, nw) != (imgsz, imgsz):
+        canvas = torch.full((b, 3, imgsz, imgsz), 114.0 / 255.0,
+                            dtype=dtype, device=x.device)
+        canvas[:, :, pad_y:pad_y + nh, pad_x:pad_x + nw] = x
+        x = canvas
+    return x.contiguous()
+
+
+def _prep_batch(images: np.ndarray, imgsz: int,
+                device="cuda") -> Tuple[torch.Tensor, float, int, int]:
+    """uint8 (B, H, W) or (B, H, W, 3) -> letterboxed float32
+    (B, 3, imgsz, imgsz) on ``device``, with scale, pad_x, pad_y."""
+    arr = np.asarray(images)
+    canvas = _letterbox(to_device(arr, device), imgsz, torch.float32)
+    return (canvas, *letterbox_params(arr.shape[1], arr.shape[2], imgsz))
+
+
+def _bf16_rounded_f32_copy(model: torch.nn.Module) -> torch.nn.Module:
+    """A float32 copy of a bfloat16 network that computes what flax
+    computes when bfloat16 variables meet a float32 input: float32
+    convolutions on the rounded weights, and per BatchNorm
+    ``(x - mean) * mul + bias`` with ``mul = rsqrt(var + eps) * scale``
+    formed in bfloat16 (see the module docstring)."""
+    def bf16(x):  # one bfloat16 rounding, the value kept in float32
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    rounded = copy.deepcopy(model).to(torch.float32)
+    for bn in rounded.modules():
+        if isinstance(bn, torch.nn.BatchNorm2d):
+            # each step in float32 and rounded by hand: torch's own
+            # bfloat16 rsqrt is not the correctly rounded one
+            inv = bf16(1.0 / torch.sqrt(bf16(bn.running_var + bn.eps)))
+            with torch.no_grad():
+                bn.weight.copy_(bf16(inv * bn.weight))
+                bn.running_var.fill_(1.0)
+            # the folded multiplier stands alone: 1 + eps is 1 in float32
+            # (torch refuses an eps of 0)
+            bn.eps = 1e-30
+    return rounded.eval()
 
 
 class YoloRunner:
@@ -104,28 +216,24 @@ class YoloRunner:
         # bf16 inference casts weights AND batch statistics
         self.model = model.eval().to(device=self.device,
                                      dtype=self.compute_dtype)
+        self._f32_model: Optional[torch.nn.Module] = None
 
-    def _segment_labels_device(self, x_u8: torch.Tensor, rgb: bool,
+    def _float32_network(self) -> torch.nn.Module:
+        """The network ``detect`` and ``segment`` run: float32 arithmetic
+        whatever ``dtype`` (see the module docstring)."""
+        if self.compute_dtype == torch.float32:
+            return self.model
+        if self._f32_model is None:
+            self._f32_model = _bf16_rounded_f32_copy(self.model)
+        return self._f32_model
+
+    def _segment_labels_device(self, x_u8: torch.Tensor,
                                full: bool) -> torch.Tensor:
         """uint8 (B, H, W[, 3]) on the device -> int8 label canvases
         (B, imgsz/q, imgsz/q), q = 1 on the quality path else 4."""
-        imgsz, cdtype, views = self.imgsz, self.compute_dtype, self.tta_views
-        b, h, w = x_u8.shape[:3]
-        scale, pad_x, pad_y = letterbox_params(h, w, imgsz)
-        nh, nw = int(round(h * scale)), int(round(w * scale))
-        x = x_u8.to(cdtype) / 255.0
-        if not rgb:
-            x = x[..., None].expand(b, h, w, 3)
-        x = x.permute(0, 3, 1, 2)  # NCHW
-        if (nh, nw) != (h, w):
-            # jax.image.resize antialiases when it shrinks; so does this
-            x = F.interpolate(x, size=(nh, nw), mode="bilinear",
-                              align_corners=False, antialias=True)
-        if (nh, nw) != (imgsz, imgsz):
-            canvas = torch.full((b, 3, imgsz, imgsz), 114.0 / 255.0,
-                                dtype=cdtype, device=x.device)
-            canvas[:, :, pad_y:pad_y + nh, pad_x:pad_x + nw] = x
-            x = canvas
+        imgsz, views = self.imgsz, self.tta_views
+        b = x_u8.shape[0]
+        x = _letterbox(x_u8, imgsz, self.compute_dtype)
         if views > 1:
             # flipping the letterboxed canvas is its own exact inverse on
             # the label canvas, so the merge needs no letterbox bookkeeping
@@ -135,7 +243,7 @@ class YoloRunner:
             if views > 3:
                 vs.append(x.flip(2, 3))
             x = torch.cat(vs, dim=0)
-        out = self.model(x.contiguous())
+        out = self.model(x)
         q = 1 if full else 4
         _, labels = postprocess_segment_labels(
             out, (imgsz, imgsz), self.conf, self.iou, self.max_det,
@@ -164,7 +272,6 @@ class YoloRunner:
         arr = np.asarray(images)
         if arr.dtype != np.uint8:
             arr = np.clip(arr, 0, 255).astype(np.uint8)
-        rgb = arr.ndim == 4
         b, h, w = arr.shape[0], arr.shape[1], arr.shape[2]
         if b > chunk:
             pad = (-b) % chunk
@@ -178,7 +285,7 @@ class YoloRunner:
             for k in range(0, arr.shape[0], chunk):
                 x = torch.from_numpy(np.ascontiguousarray(arr[k:k + chunk]))
                 coarse = self._segment_labels_device(
-                    x.to(self.device), rgb, compose_full).cpu().numpy()
+                    x.to(self.device), compose_full).cpu().numpy()
                 n = min(coarse.shape[0], b - k)
                 self._upsample_labels_into(
                     out[k:k + n], coarse[:n], q=1 if compose_full else 4)
@@ -202,6 +309,65 @@ class YoloRunner:
         yy = np.minimum((np.arange(h) * ch // h), ch - 1)
         xx = np.minimum((np.arange(w) * cw // w), cw - 1)
         out[:] = coarse[:, yy][:, :, xx]
+
+    def _detections_to_image(self, det: Detections, scale: float,
+                             pad_x: int, pad_y: int) -> Detections:
+        """Device detections in canvas pixels -> numpy detections in the
+        original image's pixels; invalid slots are zeroed."""
+        valid = det.valid.cpu().numpy()
+        boxes = (
+            det.boxes.cpu().numpy() - np.array([pad_x, pad_y, pad_x, pad_y])
+        ) / scale
+        return Detections(
+            boxes=boxes * valid[..., None],
+            scores=det.scores.cpu().numpy(),
+            classes=det.classes.cpu().numpy(),
+            coefs=det.coefs.cpu().numpy(),
+            valid=valid,
+        )
+
+    @torch.inference_mode()
+    def detect(self, images: np.ndarray) -> Detections:
+        """uint8 (B, H, W[, 3]) -> Detections in ORIGINAL image coords."""
+        x, scale, pad_x, pad_y = _prep_batch(images, self.imgsz, self.device)
+        with full_f32():
+            det = postprocess_detect(self._float32_network()(x), self.conf,
+                                     self.iou, self.max_det)
+        return self._detections_to_image(det, scale, pad_x, pad_y)
+
+    @torch.inference_mode()
+    def segment(self, images: np.ndarray):
+        """uint8 (B, H, W[, 3]) -> (Detections, masks (B, K, H, W) bool),
+        both mapped back to the original resolution."""
+        arr = np.asarray(images)
+        h, w = arr.shape[1], arr.shape[2]
+        x, scale, pad_x, pad_y = _prep_batch(arr, self.imgsz, self.device)
+        with full_f32():
+            det, masks = postprocess_segment(
+                self._float32_network()(x), (self.imgsz, self.imgsz),
+                self.conf, self.iou, self.max_det)
+        nh, nw = int(round(h * scale)), int(round(w * scale))
+        m = masks[:, :, pad_y:pad_y + nh, pad_x:pad_x + nw]
+        if (nh, nw) != (h, w):
+            # jax.image.resize(..., "nearest") samples at pixel centres
+            m = F.interpolate(m.to(torch.float32), size=(h, w),
+                              mode="nearest-exact") > 0
+        return (self._detections_to_image(det, scale, pad_x, pad_y),
+                m.cpu().numpy())
+
+
+class RibsDetector(YoloRunner):
+    """Single-class rib detector, imgsz 640 conf 0.3 (ai_tools.py:107-127)."""
+
+    def __init__(self, weights: Optional[str] = None, **kw):
+        kw.setdefault("nc", 1)
+        kw.setdefault("imgsz", 640)
+        kw.setdefault("conf", 0.3)
+        super().__init__(segment=False, weights=weights, **kw)
+
+    def predict(self, front_slice: np.ndarray) -> Detections:
+        det = self.detect(np.asarray(front_slice)[None])
+        return Detections(*(t[0] for t in det))
 
 
 class TissueSegmenter(YoloRunner):

@@ -2,6 +2,7 @@
 
 Port of eitx/models/yolo/post.py (``_dfl``, ``decode_detections``,
 ``_iou_matrix``, ``nms_fixed`` (here ``nms_batched``, over a batch),
+``process_masks``, ``postprocess_detect``, ``postprocess_segment``,
 ``compose_label_image``, ``postprocess_segment_labels``). The network's
 maps arrive in NCHW.
 
@@ -158,6 +159,83 @@ def nms_batched(
     )
 
 
+def _inside_boxes(boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(K, 4) xyxy on an (h, w) grid -> (K, h, w) bool, pixel centres at
+    integer coordinates, the right and lower edges open."""
+    xs = torch.arange(w, dtype=boxes.dtype, device=boxes.device)[None, None, :]
+    ys = torch.arange(h, dtype=boxes.dtype, device=boxes.device)[None, :, None]
+    return (
+        (xs >= boxes[:, 0][:, None, None])
+        & (xs < boxes[:, 2][:, None, None])
+        & (ys >= boxes[:, 1][:, None, None])
+        & (ys < boxes[:, 3][:, None, None])
+    )
+
+
+def _upsample_bilinear(m: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(K, h, w) -> (K, *hw): for upsampling, half-pixel bilinear with edge
+    clamping is what jax.image.resize(..., "bilinear") computes."""
+    return F.interpolate(m[None], size=hw, mode="bilinear",
+                         align_corners=False)[0]
+
+
+def process_masks(
+    proto: torch.Tensor,
+    det: Detections,
+    out_hw: Tuple[int, int],
+) -> torch.Tensor:
+    """sigmoid(coef @ proto), cropped to each box, upsampled, binarized.
+
+    proto (nm, Hp, Wp) of one image; returns (K, H, W) bool instance masks
+    (ultralytics ops.process_mask with upsample=True parity).
+    """
+    _, hp, wp = proto.shape
+    h, w = out_hw
+    m = torch.sigmoid(torch.einsum("kn,nhw->khw", det.coefs.to(proto.dtype),
+                                   proto))
+    # crop at proto resolution
+    sx, sy = wp / w, hp / h
+    bx = det.boxes * torch.tensor([sx, sy, sx, sy], dtype=proto.dtype,
+                                  device=proto.device)
+    m = _upsample_bilinear(m * _inside_boxes(bx, hp, wp), (h, w))
+    return (m > 0.5) & det.valid[:, None, None]
+
+
+def postprocess_detect(
+    outputs: Dict,
+    conf=0.3,
+    iou_thresh: float = 0.45,
+    max_det: int = 64,
+    reg_max: int = 16,
+) -> Detections:
+    """Batch decode + NMS: Detections with a leading batch axis."""
+    boxes, scores, classes, coefs = decode_detections(outputs, reg_max)
+    return nms_batched(boxes, scores, classes, coefs, conf, iou_thresh,
+                       max_det)
+
+
+def _per_image(det: Detections, b: int) -> Detections:
+    return Detections(*(t[b] for t in det))
+
+
+def postprocess_segment(
+    outputs: Dict,
+    input_hw: Tuple[int, int],
+    conf=0.3,
+    iou_thresh: float = 0.45,
+    max_det: int = 64,
+    reg_max: int = 16,
+) -> Tuple[Detections, torch.Tensor]:
+    """Batch detect + (B, K, H, W) instance masks at input resolution."""
+    det = postprocess_detect(outputs, conf, iou_thresh, max_det, reg_max)
+    proto = outputs["proto"]  # (B, nm, Hp, Wp)
+    masks = torch.stack([
+        process_masks(proto[b], _per_image(det, b), input_hw)
+        for b in range(proto.shape[0])
+    ])
+    return det, masks
+
+
 def compose_label_image(
     proto: torch.Tensor,
     det: Detections,
@@ -179,22 +257,11 @@ def compose_label_image(
     m = torch.sigmoid(torch.einsum("kn,nhw->khw", det.coefs.to(proto.dtype),
                                    proto))
     if (h, w) != (hp, wp):
-        # for upsampling, half-pixel bilinear with edge clamping is what
-        # jax.image.resize(..., "bilinear") computes
-        m = F.interpolate(m[None], size=(h, w), mode="bilinear",
-                          align_corners=False)[0]
+        m = _upsample_bilinear(m, (h, w))
     sx, sy = w / in_w, h / in_h
     bx = det.boxes * torch.tensor([sx, sy, sx, sy], dtype=proto.dtype,
                                   device=proto.device)
-    xs = torch.arange(w, dtype=proto.dtype, device=proto.device)[None, None, :]
-    ys = torch.arange(h, dtype=proto.dtype, device=proto.device)[None, :, None]
-    inside = (
-        (xs >= bx[:, 0][:, None, None])
-        & (xs < bx[:, 2][:, None, None])
-        & (ys >= bx[:, 1][:, None, None])
-        & (ys < bx[:, 3][:, None, None])
-    )
-    hit = (m > 0.5) & inside & det.valid[:, None, None]  # (K, h, w)
+    hit = (m > 0.5) & _inside_boxes(bx, h, w) & det.valid[:, None, None]
     order = torch.argsort(det.scores, stable=True)  # ascending: best last
     k = order.shape[0]
     # the last painted slot covering each pixel wins: rank + 1, 0 = none
@@ -215,14 +282,11 @@ def postprocess_segment_labels(
     out_hw: Tuple[int, int] = None,
 ) -> Tuple[Detections, torch.Tensor]:
     """Batch detect + composed (B, H, W) int32 label images."""
-    boxes, scores, classes, coefs = decode_detections(outputs, reg_max)
-    det = nms_batched(boxes, scores, classes, coefs, conf, iou_thresh,
-                      max_det)
+    det = postprocess_detect(outputs, conf, iou_thresh, max_det, reg_max)
     proto = outputs["proto"]
     out = out_hw or input_hw
     labels = torch.stack([
-        compose_label_image(proto[b], Detections(*(t[b] for t in det)),
-                            input_hw, out)
+        compose_label_image(proto[b], _per_image(det, b), input_hw, out)
         for b in range(proto.shape[0])
     ])
     return det, labels

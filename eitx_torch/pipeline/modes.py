@@ -1,14 +1,20 @@
-"""The pipeline orchestrator, jpg_png mode.
+"""The five pipeline modes as one orchestrator.
 
-Port of eitx/pipeline/modes.py (``labels_to_polygons``, ``body_polygon``,
-``Pipeline.__init__`` / ``_segmenter_for`` / ``_run_tail`` /
-``run_jpg_png``). A pre-normalized axial image goes in; segmentation,
-mask cleanup, triangle classification and the EIT forward solve run on
-``device``, contour tracing and triangulation on the host; an answer dict
-and a ``.dat`` voltage file come out.
+Port of eitx/pipeline/modes.py. Mode template parity (reference
+ai_tools.py classes DICOMSequencesToMask / ...Custom / DICOMToMask /
+ImageToMask / NIIToMask, which all run the same tail): ingest ->
+[frontal + ribs + slice select] -> HU window -> body mask -> segment ->
+cleanup -> contours -> mesh -> batched EIT solve -> answer. The rib
+detector, the HU window, the body mask, segmentation, mask cleanup,
+triangle classification and the EIT forward solve run on ``device``;
+container formats, the frontal reslice, contour tracing and triangulation
+run on the host. An answer dict and a ``.dat`` voltage file come out.
 
-This slice builds only the tissue segmenters. The rib detector and the
-zip, DICOM, NIfTI and series modes are not ported yet (ROADMAP, queue 1).
+Every mode takes an optional ``Timer`` and fills it with the request's
+spans: ``ingest`` (zip, DICOM / NIfTI / image decoding), ``frontal`` and
+``ribs`` (series modes), ``preprocess`` (HU window and body mask), then
+the tail's ``segmentation``, ``cleanup``, ``contours``, ``mesh``,
+``simulation`` and ``answer``.
 """
 
 from __future__ import annotations
@@ -16,7 +22,7 @@ from __future__ import annotations
 import logging
 import os
 from datetime import datetime
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -24,17 +30,30 @@ from ..contours.formats import build_coordinate_list, format_polygon_line
 from ..contours.simplify import approx_poly_dp
 from ..contours.trace import arc_length, find_external_contours
 from ..core.config import PipelineConfig
-from ..core.device import resolve_device
+from ..core.device import resolve_device, to_device
 from ..core.errors import ContourError
 from ..core.timing import Timer
 from ..fem.forward import simulate_eit_monitoring
 from ..geometry.polygon import polygon_area
+from ..image import body_mask_from_hu, hu_transform, window_normalize
+from ..image.normalize import minmax_normalize_u8
+from ..image.orientation import (
+    axial_stack_to_frontal,
+    middle_frontal_slice,
+    stack_axial_slices,
+)
+from ..io.zips import (
+    extract_first_image,
+    extract_nifti_middle_slice,
+    largest_series_from_zip,
+)
 from ..masks import class_canvases, cleanup_labels, labels_to_bgr
 from ..masks.colorize import overlay_with_transparency
 from ..mesh import create_mesh
-from ..models.yolo.infer import TissueSegmenter
+from ..models.yolo.infer import RibsDetector, TissueSegmenter
+from ..select import select_axial_slice_number
 from .answer import build_answer
-from .viz import stage_grid
+from .viz import annotate_ribs, stage_grid
 
 logger = logging.getLogger("eitx_torch.pipeline")
 
@@ -79,13 +98,22 @@ def body_polygon(body_mask: Optional[np.ndarray]) -> Optional[str]:
 
 
 class Pipeline:
-    """Loads the tissue segmenters once; ``run_jpg_png`` serves a request."""
+    """Loads the models once; exposes one method per mode.
+
+    The rib detector is built eagerly, with random weights where
+    ``ModelConfig.ribs_weights`` is None (the series modes then raise
+    ``SliceSelectionError``, as in the reference)."""
 
     def __init__(self, config: PipelineConfig = PipelineConfig(),
                  device="cuda", **model_kw):
         self.config = config
         self.device = resolve_device(device)
         self._model_kw = dict(model_kw, device=self.device)
+        m = config.model
+        self.ribs = RibsDetector(
+            weights=m.ribs_weights, conf=m.ribs_conf, variant=m.variant,
+            max_det=m.max_detections, dtype=m.dtype, **self._model_kw,
+        )
         self.seg_512 = self._tissue_segmenter(512)
         self._seg_256: Optional[TissueSegmenter] = None
 
@@ -192,6 +220,26 @@ class Pipeline:
                 simulation_time=sim_time,
             )
 
+    def _axial_from_dicom_slice(self, ds) -> Tuple[np.ndarray, np.ndarray, list]:
+        """One DICOM slice -> (windowed body image, body mask, spacing)."""
+        cfg = self.config.image
+        hu = hu_transform(ds.pixel_array, ds.rescale_slope,
+                          ds.rescale_intercept, device=self.device)
+        norm = window_normalize(hu, cfg.window_level, cfg.window_width)
+        # reference quirk preserved: the mask is built on the flipud'd
+        # image while the normalized slice is rotated 180 degrees
+        # (utils.py:551 vs utils.py:309)
+        mask = body_mask_from_hu(
+            hu, cfg.body_hu_min, cfg.body_hu_max, cfg.body_open_kernel,
+            flipud=True,
+        )
+        body_img = (norm * (mask > 0)).cpu().numpy()
+        spacing = ds.pixel_spacing or list(
+            self.config.default_pixel_spacing_image
+        )
+        return body_img, mask.cpu().numpy(), spacing
+
+    # --- the five modes ---------------------------------------------------
     def run_jpg_png(self, image: np.ndarray,
                     timer: Optional[Timer] = None) -> dict:
         """Mode jpg_png: pre-normalized axial image, no body machinery
@@ -204,3 +252,80 @@ class Pipeline:
             ribs_annotated=None,
             timer=timer if timer is not None else Timer(),
         )
+
+    def run_jpg_png_zip(self, zip_data,
+                        timer: Optional[Timer] = None) -> dict:
+        timer = timer if timer is not None else Timer()
+        with timer.span("ingest"):
+            image = extract_first_image(zip_data)
+        return self.run_jpg_png(image, timer=timer)
+
+    def run_dicom_frame(self, zip_data,
+                        timer: Optional[Timer] = None) -> dict:
+        """Mode dicom_frame: single DICOM slice (DICOMToMask)."""
+        timer = timer if timer is not None else Timer()
+        with timer.span("ingest"):
+            slices, _ = largest_series_from_zip(zip_data)
+        ds = slices[-1]
+        with timer.span("preprocess"):
+            body_img, mask, spacing = self._axial_from_dicom_slice(ds)
+        return self._run_tail(body_img, mask, spacing, None, timer)
+
+    def run_nii(self, zip_data, timer: Optional[Timer] = None) -> dict:
+        """Mode nii: middle slice of a NIfTI volume (NIIToMask)."""
+        timer = timer if timer is not None else Timer()
+        cfg = self.config.image
+        with timer.span("ingest"):
+            sl, spacing = extract_nifti_middle_slice(zip_data)
+        with timer.span("preprocess"):
+            sl = to_device(sl, self.device)
+            norm = window_normalize(sl, cfg.window_level, cfg.window_width)
+            norm = norm.flip(0, 1)  # extra ROTATE_180 (ai_tools.py:431)
+            mask = body_mask_from_hu(
+                sl, cfg.body_hu_min, cfg.body_hu_max, cfg.body_open_kernel
+            )
+            body_img = (norm * (mask > 0)).cpu().numpy()
+            mask = mask.cpu().numpy()
+        return self._run_tail(body_img, mask, spacing, None, timer)
+
+    def _dicom_series_common(self, zip_data, use_custom: bool,
+                             timer: Optional[Timer]) -> dict:
+        timer = timer if timer is not None else Timer()
+        with timer.span("ingest"):
+            slices, custom = largest_series_from_zip(zip_data)
+        custom = custom if use_custom else 0
+        slices.sort(key=lambda s: s.instance_number)
+        with timer.span("frontal"):
+            vol = stack_axial_slices([s.pixel_array for s in slices])
+            frontal = axial_stack_to_frontal(
+                vol,
+                slices[0].patient_position or "HFS",
+                slices[0].image_orientation,
+                slices[0].patient_orientation,
+            )
+            front = minmax_normalize_u8(
+                middle_frontal_slice(frontal), device=self.device
+            ).cpu().numpy()
+        with timer.span("ribs"):
+            det = self.ribs.predict(front)
+            boxes = det.boxes[det.valid]
+            numbers = select_axial_slice_number(
+                boxes, custom, image_width=front.shape[1]
+            )
+        idx = min(max(numbers[-1], 0), len(slices) - 1)
+        ds = slices[idx]
+        with timer.span("preprocess"):
+            body_img, mask, spacing = self._axial_from_dicom_slice(ds)
+        with timer.span("answer"):
+            ribs_img = annotate_ribs(front, det.boxes, det.valid, numbers)
+        return self._run_tail(body_img, mask, spacing, ribs_img, timer)
+
+    def run_dicom_sequences_auto(self, zip_data,
+                                 timer: Optional[Timer] = None) -> dict:
+        """Mode dicom_sequences_auto (DICOMSequencesToMask)."""
+        return self._dicom_series_common(zip_data, False, timer)
+
+    def run_dicom_sequences_custom(self, zip_data,
+                                   timer: Optional[Timer] = None) -> dict:
+        """Mode dicom_sequences_custom: honors custom_input.txt offset."""
+        return self._dicom_series_common(zip_data, True, timer)

@@ -128,3 +128,78 @@ def test_cleanup_on_card_equals_cpu(dev):
     for b in (None, body):
         got = cleanup_labels(lab, b, device=dev).cpu()
         assert torch.equal(got, cleanup_labels(lab, b, device="cpu"))
+
+
+def _hu_phantom():
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from torch_series_phantom import thorax_hu
+
+    rng = np.random.default_rng(11)
+    hu = thorax_hu(rng, 512) + rng.normal(0, 12.0, (512, 512)).astype(
+        np.float32)
+    hu[480:486, 60:450] = 200.0  # CT-table strip
+    return hu
+
+
+@pytest.mark.parametrize("name", [
+    "body_mask_from_hu", "body_mask_from_hu_flipud", "window_normalize",
+    "window_normalize_int16", "minmax_normalize_u8",
+    "minmax_normalize_u8_int16", "hu_transform_uint16", "binary_close",
+    "largest_component_ties", "fill_holes"])
+def test_image_on_card_equals_cpu(dev, name):
+    from eitx_torch import image
+
+    hu = _hu_phantom()
+    ties = np.zeros((64, 64), bool)
+    ties[4:12, 4:20] = ties[30:46, 40:48] = True  # two components of 128 px
+    calls = {
+        "body_mask_from_hu": lambda d: image.body_mask_from_hu(hu, device=d),
+        "body_mask_from_hu_flipud": lambda d: image.body_mask_from_hu(
+            hu, flipud=True, device=d),
+        "window_normalize": lambda d: image.window_normalize(hu, device=d),
+        # whole-numbered HU: the exact quotient is an integer on every
+        # 80th value, where a division through the reciprocal shows
+        "window_normalize_int16": lambda d: image.window_normalize(
+            np.rint(hu).astype(np.int16), device=d),
+        "minmax_normalize_u8": lambda d: image.minmax_normalize_u8(
+            hu, device=d),
+        "minmax_normalize_u8_int16": lambda d: image.minmax_normalize_u8(
+            np.rint(hu).astype(np.int16), device=d),
+        "hu_transform_uint16": lambda d: image.hu_transform(
+            (hu + 1024).clip(0).astype(np.uint16), 1.0, -1024.0, device=d),
+        "binary_close": lambda d: image.binary_close(hu > -500, 5, device=d),
+        "largest_component_ties": lambda d: image.largest_component(
+            ties, device=d),
+        "fill_holes": lambda d: image.fill_holes(
+            (hu > -500) & (hu < 1000), device=d),
+    }
+    on_card = calls[name](dev)
+    assert on_card.device.type == "cuda"
+    assert torch.equal(on_card.cpu(), calls[name]("cpu"))
+    if name == "largest_component_ties":
+        assert on_card[5, 5] and not on_card[31, 41]  # the least root stays
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_rib_detector_on_card_equals_cpu(dev, dtype):
+    """The trained detector on the frontal plane of a seeded series: the
+    card against the CPU, both in float32 arithmetic with TF32 off."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from eitx_torch.image import minmax_normalize_u8
+    from eitx_torch.models.yolo.infer import RibsDetector
+    from eitx_torch.select import select_axial_slice_number
+    from torch_series_phantom import series_volume
+
+    vol = series_volume(1, 160, 256)
+    front = minmax_normalize_u8(vol[:, 128, :], device="cpu").numpy()
+    weights = os.path.join(ROOT, "weights", "ribs_n_640.msgpack")
+    card = RibsDetector(weights=weights, dtype=dtype, device=dev)
+    assert next(card._float32_network().parameters()).is_cuda
+    got = card.predict(front)
+    want = RibsDetector(weights=weights, dtype=dtype,
+                        device="cpu").predict(front)
+    assert np.array_equal(got.valid, want.valid) and got.valid.sum() >= 14
+    assert np.abs(got.boxes - want.boxes).max() <= 0.05
+    pick = select_axial_slice_number(got.boxes[got.valid], 0, image_width=256)
+    assert pick == select_axial_slice_number(want.boxes[want.valid], 0,
+                                             image_width=256)

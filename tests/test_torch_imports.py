@@ -23,6 +23,7 @@ MODULES = [
     "eitx_torch.masks",
     "eitx_torch.models.yolo",
     "eitx_torch.io",
+    "eitx_torch.select",
     "eitx_torch.pipeline",
 ]
 
