@@ -1,28 +1,55 @@
-from .assembly import ClassStiffness, element_geometry
+from .assembly import ClassStiffness, assemble_stiffness, element_geometry
 from .electrodes import boundary_loop, place_electrodes_equal_spacing
-from .protocol import Protocol, create_protocol
-from .spectral import LowRankSpectralSolver
+from .protocol import Protocol, abs_to_diff, create_protocol
+from .solver import forward_solve, forward_solve_batched, forward_solve_cg
+from .spectral import (
+    LowRankSpectralSolver,
+    SpectralEITSolver,
+    lowrank_solve_batch,
+)
+from .admittance import forward_solve_admittance, simulate_eit_spectroscopy
+from .sheffield import (
+    electrode_averaging_matrix,
+    sheffield_ex_mat,
+    sheffield_monitoring,
+    sheffield_solve_admittance,
+)
 from .forward import (
     MeshInfo,
     build_sigma_frames,
     compact_mesh_nodes,
     prepare_mesh_info,
     simulate_eit_monitoring,
+    simulate_eit_monitoring_subjects,
     write_dat,
 )
 
 __all__ = [
     "ClassStiffness",
+    "assemble_stiffness",
     "element_geometry",
     "boundary_loop",
     "place_electrodes_equal_spacing",
     "Protocol",
+    "abs_to_diff",
     "create_protocol",
+    "forward_solve",
+    "forward_solve_batched",
+    "forward_solve_cg",
+    "SpectralEITSolver",
     "LowRankSpectralSolver",
+    "lowrank_solve_batch",
+    "forward_solve_admittance",
+    "simulate_eit_spectroscopy",
+    "electrode_averaging_matrix",
+    "sheffield_ex_mat",
+    "sheffield_monitoring",
+    "sheffield_solve_admittance",
     "MeshInfo",
     "build_sigma_frames",
     "compact_mesh_nodes",
     "prepare_mesh_info",
     "simulate_eit_monitoring",
+    "simulate_eit_monitoring_subjects",
     "write_dat",
 ]

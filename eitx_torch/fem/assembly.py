@@ -23,6 +23,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.device import full_f32, resolve_device
+
 
 @contextlib.contextmanager
 def deterministic_algorithms():
@@ -62,6 +64,14 @@ def element_geometry(nodes: torch.Tensor, tris: torch.Tensor):
     )
     ke = torch.where(valid[:, None, None], ke, torch.zeros_like(ke))
     return ke, area
+
+
+def assemble_stiffness(
+    nodes: torch.Tensor, tris: torch.Tensor, cond: torch.Tensor, n_nodes: int
+) -> torch.Tensor:
+    """Dense global stiffness for one per-element conductivity vector:
+    cond (M,) -> (N, N)."""
+    return assemble_class_stiffness(nodes, tris, cond[:, None], n_nodes)[0]
 
 
 def assemble_class_stiffness(
@@ -135,6 +145,7 @@ class ClassStiffness:
         ground_ref: bool = True,
         device="cuda",
     ) -> "ClassStiffness":
+        device = resolve_device(device)
         nodes = np.asarray(nodes, dtype=np.float64)
         tris = np.asarray(tris, dtype=np.int64)
         elem_class = np.asarray(elem_class, dtype=np.int64)
@@ -178,3 +189,10 @@ class ClassStiffness:
             elem_class_host=elem_class,
             grounded=ground_ref,
         )
+
+    def system_matrices(self, sigma: torch.Tensor) -> torch.Tensor:
+        """K(t) for per-class conductivities sigma (T, C) -> (T, N, N)."""
+        with full_f32():
+            K = torch.tensordot(sigma.to(self.k_class.dtype), self.k_class,
+                                dims=([1], [0]))
+        return K + torch.diag(self.diag_fix)[None]

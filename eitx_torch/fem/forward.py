@@ -1,11 +1,14 @@
 """High-level EIT monitoring simulation.
 
-Port of eitx/fem/forward.py: ``prepare_mesh_info``, ``compact_mesh_nodes``,
-``build_sigma_frames``, ``write_dat`` and the point-electrode, spectral,
-float32 branch of ``simulate_eit_monitoring``. The other branches (CEM
-electrodes, the batched-Cholesky / CG / full-spectral solvers, float64,
-many subjects at once) are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Port of eitx/fem/forward.py: one subject through every solver family
+(``simulate_eit_monitoring``), or many subjects with one batched spectral
+setup per node bucket (``simulate_eit_monitoring_subjects``). The device
+work runs on ``device``; all T = n_points frames of a subject solve at
+once.
+
+``precision="f64"`` computes in float64 here. The JAX package never
+enables x64, so its "f64" arrays are float32; the float64 route is held
+to the float64 oracle (``fem/oracle.py``) instead.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from ..core.config import ClassMap, SimulationConfig
 from ..core.device import resolve_device
@@ -23,9 +27,15 @@ from ..core.errors import SimulationError
 from ..physio.materials import get_materials, tissue_conductivities
 from ..physio.spirometry import conductivity_schedule, recorded_schedule
 from .assembly import ClassStiffness
+from .cem import build_cem_system, forward_solve_cem, spectral_cem_solver
 from .electrodes import place_electrodes_equal_spacing
 from .protocol import Protocol, create_protocol
-from .spectral import LowRankSpectralSolver
+from .solver import forward_solve_batched, forward_solve_cg
+from .spectral import (
+    LowRankSpectralSolver,
+    SpectralEITSolver,
+    lowrank_solve_batch,
+)
 
 
 def _breathing_schedule(
@@ -125,23 +135,91 @@ def write_dat(filename: str, v: np.ndarray, n_repeats: int) -> None:
                 fh.write(" ".join(format(x, ".18e") for x in row) + "\n")
 
 
-def _check_supported(cfg: SimulationConfig) -> None:
-    """Refuse the configurations this slice of the port does not run."""
-    if cfg.electrode_model != "point":
-        raise NotImplementedError(
-            f"electrode_model={cfg.electrode_model!r} is not ported yet "
-            "(ROADMAP, queue 1: other solver families, CEM)"
+def _dtype(cfg: SimulationConfig) -> torch.dtype:
+    return torch.float64 if cfg.precision == "f64" else torch.float32
+
+
+def _schedule(cfg, classes, materials_location, compat_reference_interp):
+    """(T, C) per-class conductivities, the lung column and the protocol."""
+    materials = get_materials(materials_location)
+    _, condspir = _breathing_schedule(cfg, materials, compat_reference_interp)
+    base_cond = tissue_conductivities(
+        materials,
+        cfg.frequency_hz,
+        classes.id_to_name(),
+        compat_reference_interp,
+    )
+    sigma = build_sigma_frames(condspir, base_cond, classes)
+    proto: Protocol = create_protocol(
+        cfg.n_electrodes, cfg.dist_exc, cfg.step_meas, cfg.parser_meas
+    )
+    return sigma, classes.name_to_id()["lung"], proto
+
+
+def _electrodes(cfg: SimulationConfig, mesh: MeshInfo) -> np.ndarray:
+    return place_electrodes_equal_spacing(
+        mesh.node,
+        mesh.element,
+        n_electrodes=cfg.n_electrodes,
+        starting_angle=math.radians(cfg.starting_angle_deg),
+    )
+
+
+def simulate_eit_monitoring_subjects(
+    mesh_datas,
+    cfg: SimulationConfig = SimulationConfig(),
+    classes: ClassMap = ClassMap(),
+    materials_location: Optional[str] = None,
+    compat_reference_interp: bool = False,
+    device="cuda",
+):
+    """Monitoring for MANY subjects with batched spectral setup.
+
+    Subjects whose padded stiffness shapes coincide (ClassStiffness's
+    pad_nodes_to buckets) share one setup: each stage of the factorization
+    is one library call over the group's stack, and one batched product
+    solves the group's frames (low-rank solver).
+
+    Returns a list of (voltages (T, n_exc*n_meas), per_subject_seconds).
+    """
+    dev = resolve_device(device)
+    t_start = time.time()
+    sigma, lung_col, proto = _schedule(cfg, classes, materials_location,
+                                       compat_reference_interp)
+    alphas = sigma[:, lung_col]
+    alpha0 = float(alphas.mean())
+
+    els, css = [], []
+    for mesh_data in mesh_datas:
+        info = compact_mesh_nodes(prepare_mesh_info(mesh_data, classes))
+        els.append(_electrodes(cfg, info))
+        css.append(
+            ClassStiffness.build(
+                info.node, info.element, info.cond,
+                n_classes=classes.n_tissues, dtype=_dtype(cfg),
+                pad_nodes_to=cfg.pad_nodes_to, pad_elems_to=cfg.pad_elems_to,
+                device=dev,
+            )
         )
-    if cfg.solver != "spectral":
-        raise NotImplementedError(
-            f"solver={cfg.solver!r} is not ported yet "
-            "(ROADMAP, queue 1: other solver families)"
-        )
-    if cfg.precision != "f32":
-        raise NotImplementedError(
-            f"precision={cfg.precision!r} is not ported yet "
-            "(ROADMAP, queue 1: other solver families, float64 route)"
-        )
+    # group same-bucket subjects for one batched setup each
+    groups: Dict[tuple, list] = {}
+    for i, cs in enumerate(css):
+        groups.setdefault(tuple(cs.k_class.shape), []).append(i)
+    results = [None] * len(css)
+    for idxs in groups.values():
+        args = ([css[i] for i in idxs], sigma[0], lung_col,
+                [els[i] for i in idxs], proto.ex_mat, proto.meas_mat,
+                [alpha0] * len(idxs))
+        if cfg.solver == "spectral_full":
+            voltages = [s.solve(alphas) for s in SpectralEITSolver.build_batch(
+                *args)]
+        else:
+            voltages = lowrank_solve_batch(LowRankSpectralSolver.build_batch(
+                *args, rank_bucket=cfg.spectral_rank_bucket), alphas)
+        for i, v in zip(idxs, voltages):
+            results[i] = v.cpu().numpy().reshape(cfg.n_points, -1)
+    per_subject = (time.time() - t_start) / max(len(css), 1)
+    return [(v, per_subject) for v in results]
 
 
 def simulate_eit_monitoring(
@@ -156,55 +234,79 @@ def simulate_eit_monitoring(
 ) -> Tuple[np.ndarray, float]:
     """Simulate EIT monitoring with time-varying lung conductivity.
 
-    Returns (voltages (T, n_exc * n_meas), generation_time_s). The
-    stiffness assembly and the low-rank spectral solve run on ``device``;
-    all T = n_points frames solve as one product.
+    Returns (voltages (T, n_exc * n_meas), generation_time_s). Assembly
+    and solve run on ``device`` with the solver, electrode model and
+    precision of ``cfg``; all T = n_points frames solve at once.
     """
-    _check_supported(cfg)
     dev = resolve_device(device)
     t0 = time.time()
     mesh = compact_mesh_nodes(prepare_mesh_info(mesh_data, classes))
-    materials = get_materials(materials_location)
-    _, condspir = _breathing_schedule(cfg, materials, compat_reference_interp)
-    base_cond = tissue_conductivities(
-        materials,
-        cfg.frequency_hz,
-        classes.id_to_name(),
-        compat_reference_interp,
-    )
-    sigma = build_sigma_frames(condspir, base_cond, classes)
-
-    el_pos = place_electrodes_equal_spacing(
-        mesh.node,
-        mesh.element,
-        n_electrodes=cfg.n_electrodes,
-        starting_angle=math.radians(cfg.starting_angle_deg),
-    )
-    proto: Protocol = create_protocol(
-        cfg.n_electrodes, cfg.dist_exc, cfg.step_meas, cfg.parser_meas
-    )
-    cs = ClassStiffness.build(
-        mesh.node,
-        mesh.element,
-        mesh.cond,
-        n_classes=classes.n_tissues,
-        pad_nodes_to=cfg.pad_nodes_to,
-        pad_elems_to=cfg.pad_elems_to,
-        device=dev,
-    )
-    lung_col = classes.name_to_id()["lung"]
+    sigma, lung_col, proto = _schedule(cfg, classes, materials_location,
+                                       compat_reference_interp)
     alphas = sigma[:, lung_col]
-    solver = LowRankSpectralSolver.build(
-        cs,
-        sigma[0],
-        lung_class=lung_col,
-        el_pos=el_pos,
-        ex_mat=proto.ex_mat,
-        meas_mat=proto.meas_mat,
-        alpha0=float(alphas.mean()),
-        rank_bucket=cfg.spectral_rank_bucket,
-    )
-    v = solver.solve(alphas).cpu().numpy().reshape(cfg.n_points, -1)
+    el_pos = _electrodes(cfg, mesh)
+    dtype = _dtype(cfg)
+    if cfg.electrode_model == "cem":
+        cs_raw = ClassStiffness.build(
+            mesh.node,
+            mesh.element,
+            mesh.cond,
+            n_classes=classes.n_tissues,
+            dtype=dtype,
+            ground_ref=False,
+            device=dev,
+        )
+        system = build_cem_system(
+            cs_raw,
+            mesh.node,
+            mesh.element,
+            n_electrodes=cfg.n_electrodes,
+            z_contact=cfg.z_contact,
+            coverage=cfg.electrode_coverage,
+            starting_angle=math.radians(cfg.starting_angle_deg),
+            dtype=dtype,
+        )
+        if cfg.solver in ("spectral", "spectral_full"):
+            # both spectral flavours route through the low-rank CEM
+            # factorization (the augmented system has no full-pencil
+            # variant); 'spectral_full' differs only on the point-
+            # electrode path
+            v = spectral_cem_solver(
+                system, sigma[0], lung_col, proto.ex_mat, proto.meas_mat,
+                alpha0=float(alphas.mean()),
+                rank_bucket=cfg.spectral_rank_bucket,
+            ).solve(alphas)
+        else:
+            v = forward_solve_cem(system, sigma, proto.ex_mat, proto.meas_mat)
+    else:
+        cs = ClassStiffness.build(
+            mesh.node,
+            mesh.element,
+            mesh.cond,
+            n_classes=classes.n_tissues,
+            dtype=dtype,
+            pad_nodes_to=cfg.pad_nodes_to,
+            pad_elems_to=cfg.pad_elems_to,
+            device=dev,
+        )
+        if cfg.solver == "spectral_full":
+            v = SpectralEITSolver.build(
+                cs, sigma[0], lung_col, el_pos, proto.ex_mat, proto.meas_mat,
+                alpha0=float(alphas.mean()),
+            ).solve(alphas)
+        elif cfg.solver == "spectral":
+            v = LowRankSpectralSolver.build(
+                cs, sigma[0], lung_col, el_pos, proto.ex_mat, proto.meas_mat,
+                alpha0=float(alphas.mean()),
+                rank_bucket=cfg.spectral_rank_bucket,
+            ).solve(alphas)
+        elif cfg.solver == "cg":
+            v = forward_solve_cg(cs, sigma, el_pos, proto.ex_mat,
+                                 proto.meas_mat)
+        else:
+            v = forward_solve_batched(cs, sigma, el_pos, proto.ex_mat,
+                                      proto.meas_mat)
+    v = v.cpu().numpy().reshape(cfg.n_points, -1)
     if save_to_file and filename is not None:
         write_dat(filename, v, n_repeats=cfg.n_spir * cfg.n_minutes)
     return v, time.time() - t0

@@ -203,3 +203,115 @@ def test_rib_detector_on_card_equals_cpu(dev, dtype):
     pick = select_axial_slice_number(got.boxes[got.valid], 0, image_width=256)
     assert pick == select_axial_slice_number(want.boxes[want.valid], 0,
                                              image_width=256)
+
+
+def _disk_subject(nb, rings, seed=0, radius=100.0):
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from meshfix import disk_mesh_with_classes
+
+    nodes, tris, cls = disk_mesh_with_classes(nb, rings)
+    scale = radius * (1.0 + 0.02 * np.random.default_rng(seed).standard_normal())
+    return {"NODES": nodes * scale, "TRIANGLES": tris, "CLASS": cls}
+
+
+def _rel_to_max(got, ref):
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def test_factory_on_card_is_batched_and_byte_stable(dev, tmp_path):
+    """Three subjects in two node buckets at the serving frame count: every
+    subject batched, the same bytes on a second run, each subject within
+    the reference's batched-vs-single bound (tests/test_spectral.py:81) of
+    its single-subject run on the card and of the CPU's batched run."""
+    from eitx_torch.core.config import SimulationConfig
+    from eitx_torch.fem import simulate_eit_monitoring
+    from eitx_torch.pipeline.batch import generate_batch
+
+    subjects = [("s0", _disk_subject(40, 6, 0)), ("s1", _disk_subject(44, 5, 1)),
+                ("s2", _disk_subject(64, 8, 2))]
+    cfg = SimulationConfig(pad_nodes_to=256, pad_elems_to=1024)
+    runs = [generate_batch(subjects, str(tmp_path / d), cfg, device=dev)
+            for d in ("a", "b")]
+    generate_batch(subjects, str(tmp_path / "cpu"), cfg, device="cpu")
+    for sid, mesh in subjects:
+        assert all(r["subjects"][sid]["batched"] for r in runs)
+        a, b, c = (tmp_path / d / f"results_{sid}.dat" for d in ("a", "b", "cpu"))
+        assert a.read_bytes() == b.read_bytes()
+        got = np.loadtxt(a)[:100]
+        assert got.shape == (100, 208)
+        single, _ = simulate_eit_monitoring(mesh, cfg, device=dev)
+        for ref in (single, np.loadtxt(c)[:100]):
+            assert np.allclose(got, ref, rtol=2e-4, atol=1e-7)
+
+
+def _family_bound(solver, electrode_model, precision):
+    """Card vs CPU, scale-relative: the bounds of the CPU parity tests
+    (tests/test_torch_fem_solvers.py)."""
+    if precision == "f64":
+        return 1e-4 if solver == "cg" and electrode_model == "point" else 1e-8
+    if electrode_model == "cem":
+        return 3e-3
+    return 5e-3 if solver == "cg" else 2e-4
+
+
+@pytest.mark.parametrize("precision", ["f32", "f64"])
+@pytest.mark.parametrize("electrode_model", ["point", "cem"])
+@pytest.mark.parametrize("solver", ["spectral", "spectral_full", "cholesky",
+                                    "cg"])
+def test_solver_family_on_card_equals_cpu(dev, solver, electrode_model,
+                                          precision):
+    from eitx_torch.core.config import SimulationConfig
+    from eitx_torch.fem import simulate_eit_monitoring
+
+    cfg = SimulationConfig(n_points=4, solver=solver, z_contact=5e-3,
+                           electrode_model=electrode_model,
+                           precision=precision)
+    # the unit disk of the CPU parity tests: the contact conductance grows
+    # with edge length and the tissue stiffness does not, so at a radius of
+    # 100 mesh units the float32 CEM of both packages sits 5-8 % of scale
+    # from float64
+    mesh = _disk_subject(48, 6, radius=1.0)
+    got, _ = simulate_eit_monitoring(mesh, cfg, device=dev)
+    want, _ = simulate_eit_monitoring(mesh, cfg, device="cpu")
+    assert got.shape == (4, 208) and np.isfinite(got).all()
+    assert _rel_to_max(got, want) < _family_bound(solver, electrode_model,
+                                                   precision)
+
+
+def test_femm_path_on_card_equals_cpu(dev):
+    """Admittance, the frequency sweep and Sheffield monitoring: the card
+    against the CPU, within the CPU parity tests' bound (1e-3 of scale)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from eitx_torch.fem import (
+        create_protocol,
+        forward_solve_admittance,
+        place_electrodes_equal_spacing,
+        sheffield_monitoring,
+        simulate_eit_spectroscopy,
+    )
+    from meshfix import disk_mesh_with_classes
+
+    nodes, tris, cls = disk_mesh_with_classes(48, 6)
+    el = place_electrodes_equal_spacing(nodes, tris, 16, starting_angle=np.pi)
+    p = create_protocol(16, 1, 1, "std")
+    rng = np.random.default_rng(6)
+    sigma = rng.uniform(0.05, 0.5, tris.shape[0])
+    eps = rng.uniform(1e3, 3e4, tris.shape[0])
+    got, want = (forward_solve_admittance(
+        nodes, tris, sigma, eps, 5e4, el, p.ex_mat, p.meas_mat,
+        nodes.shape[0], device=d).cpu().numpy() for d in (dev, "cpu"))
+    assert _rel_to_max(got, want) < 1e-3
+    mesh = {"NODES": nodes * 100.0, "TRIANGLES": tris, "CLASS": cls}
+    got, want = (simulate_eit_spectroscopy(mesh, [1e4, 5e4, 2e5, 1e6],
+                                           device=d) for d in (dev, "cpu"))
+    assert _rel_to_max(got, want) < 1e-3
+    th = np.arctan2(nodes[el][:, 1], nodes[el][:, 0])
+    tang = np.stack([-np.sin(th), np.cos(th)], 1) * 0.04
+    elecs = np.stack([np.stack([nodes[e] - t, nodes[e] + t, nodes[e]])
+                      for e, t in zip(el, tang)])
+    sig = np.full((8, tris.shape[0]), 0.3)
+    sig[:, cls == 2] = np.linspace(0.10, 0.24, 8)[:, None]
+    got, want = (sheffield_monitoring(nodes, tris, sig, np.zeros_like(sig),
+                                      5e4, elecs, device=d)
+                 for d in (dev, "cpu"))
+    assert got.shape == (8, 16, 16) and _rel_to_max(got, want) < 1e-3

@@ -181,11 +181,15 @@ def test_write_dat_identical_to_eitx(tmp_path):
     ("electrode_model", "cem"), ("precision", "f64"),
 ])
 def test_unported_branches_raise(small_thorax_mesh, field, value):
+    """The branches that raised NotImplementedError before the solver
+    families were ported now run on the thorax: finite voltages of the
+    serving shape (their parity with eitx: tests/test_torch_fem_solvers.py)."""
     from dataclasses import replace
 
-    cfg = replace(SimulationConfig(n_points=2), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        simulate_eit_monitoring(small_thorax_mesh, cfg, device="cpu")
+    cfg = replace(SimulationConfig(n_points=4), **{field: value})
+    v, _ = simulate_eit_monitoring(small_thorax_mesh, cfg, device="cpu")
+    assert v.shape == (4, 208) and np.isfinite(v).all()
+    assert v.dtype == (np.float64 if value == "f64" else np.float32)
 
 
 def test_scatter_assembly_restores_determinism_flag():
