@@ -17,7 +17,11 @@ its plain PyTorch version:
   - the dataset factory ``pipeline.batch.generate_batch`` on nine
     synthetic thorax subjects in two node buckets, at the serving
     simulation defaults, twice;
-  - every forward-solver family of ``eitx_torch.fem`` once.
+  - every forward-solver family of ``eitx_torch.fem`` once;
+  - inverse imaging (difference, GREIT, Gauss-Newton) of the serving
+    monitoring on the real slice at the serving lc 7;
+  - the HTTP service over the serving ``Pipeline``, and the pixel-level
+    eval harness.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -64,6 +68,23 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             (float64; float32 measured);
             admittance with eps_r = 0 vs the real solver, a 4-frequency
             sweep and Sheffield monitoring; each family's time
+  inverse   the real slice at lc 7 (~4,200 nodes), the serving monitoring
+            (1200 x 208): reconstruct_monitoring (Jacobian and images vs
+            float64 on the card, the lungs' change vs their schedule),
+            greit_monitoring (mask equal to the CPU's, R vs the CPU's, lung
+            pixels vary most, .npz round trip), gauss_newton_absolute on a
+            +50 % lung inclusion (residual drop, contrast, vs the CPU, no
+            device wait inside the loop); warm times and images per second
+  serve     EitxHTTPServer over the serving Pipeline: /health, /ui, three
+            sequential and three concurrent multipart image requests
+            (byte-equal .dat files, equal to a direct call's), the series
+            zip through the client (the fixture's pick), /createMesh, a
+            bad upload (400) and an unknown route (404); one kernel
+            launch per request; HTTP overhead over the direct call
+  eval      PixelLevelEvaluator (trained 512 checkpoint, batch 16) on 32
+            flips and shifts of the 512^2 phantom with YOLO labels traced
+            from the fixture's labels: equal to evaluate_dataset of the
+            card's labels; images per second
 Every phase prints its seconds. Then the kernels line, the card's name
 and power limit, and the result line. Imports nothing of JAX or of the
 JAX package.
@@ -752,8 +773,8 @@ def _check_dat(answer, what: str) -> np.ndarray:
 
 def phase_series(dev, vol, fixture, image_512):
     """The series mode at full width, then one request of each other
-    container mode. Returns the kernel launches of the counted requests
-    and the kernel's inputs in the first series request."""
+    container mode. Returns the kernel launches of the counted requests,
+    the kernel's inputs in the first series request and the series zip."""
     import torch
 
     from eitx_torch.core.config import ModelConfig, PipelineConfig
@@ -856,7 +877,7 @@ def phase_series(dev, vol, fixture, image_512):
         emit("modes", s=time.perf_counter() - t0,
              spans={k: t.as_dict() for k, t in timers.items()},
              pip_launches=pip.pip_launches)
-        return launches + pip.pip_launches, recorded[0]
+        return launches + pip.pip_launches, recorded[0], series
 
 
 # the synthetic thorax of bench.py build_thorax_mesh (copied: bench.py
@@ -1242,6 +1263,484 @@ def phase_solvers(dev, mesh):
          padded_nodes=cs.n_nodes, warm_s=times, **results)
 
 
+# the inverse phase's bounds, scale-relative: float32 against float64 on
+# the card, or the card against the same float32 code on the CPU; each
+# about 4 times what the H100 measured (PERF.md). On the lc-7 slice the
+# card's float32 field solves leave the Jacobian 2.5e-3 of scale from
+# float64 (the CPU's 1.9e-4), and the regularized measurement-space solve
+# carries any Jacobian error into the images: 2.2e-2,
+# and 1.0e-2 with float64 fields and float32 element sums
+# (tests/torch_inverse_precision.py). GREIT's train solve does the same to
+# R (card vs CPU 7.4e-3). Gauss-Newton's eight regularized steps fit the
+# data alike on both (squared residual 3.3e-6 vs 3.0e-6 of 0.12) and
+# differ by 1.7e-2 in what the data barely sees
+INV_JAC_F64 = 1e-2
+INV_IMAGES_F64 = 1e-1
+GREIT_R_CPU = 3e-2
+GN_SIGMA_CPU = 1e-1
+GN_ITERATIONS = 8
+
+
+@contextlib.contextmanager
+def device_waits():
+    """While open, torch's sync debug mode warns on every operation that
+    makes the host wait for the device; yields a list that gets, as they
+    come, "file:line" of the line that waited and of the package's line
+    under which it ran. Nests: an inner block keeps its own waits."""
+    import traceback
+    import warnings
+
+    import torch
+
+    package = os.path.join(ROOT, "eitx_torch")
+
+    class Waits(list):  # catch_warnings' record list: note the caller
+        armed = False  # switching the mode on and off is no wait
+
+        def append(self, w):
+            if self.armed and "synchroniz" in str(w.message):
+                stack = traceback.extract_stack()[:-2]
+                sites = [f for f in stack if f.filename.startswith(package)]
+                # the package's line, and the library line under it
+                where = sites[-1:] + stack[-1:]
+                super().append(" <- ".join(
+                    f"{os.path.relpath(f.filename, ROOT)}:{f.lineno}"
+                    for f in where[::-1]))
+
+    prev = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True):
+        warnings.simplefilter("always")
+        waits = Waits()
+        warnings._showwarnmsg_impl = waits.append
+        torch.cuda.set_sync_debug_mode("warn")
+        waits.armed = True
+        try:
+            yield waits
+        finally:
+            waits.armed = False
+            torch.cuda.set_sync_debug_mode(prev)
+
+
+def _rel_to_max(got, ref) -> float:
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(got - ref).max() / np.abs(ref).max())
+
+
+def phase_inverse(dev):
+    """Inverse imaging at full width on the real slice meshed at the
+    serving lc 7: difference imaging and GREIT of the serving monitoring
+    (1200 frames of 208), Gauss-Newton of an inclusion; each against
+    float64 on the card or the same code on the CPU. Returns the kernel
+    launches of the meshing."""
+    import torch
+
+    import eitx_torch.fem.forward as forward
+    import eitx_torch.fem.greit as greit_module
+    import eitx_torch.fem.inverse as inverse
+    from eitx_torch.core.config import ClassMap, SimulationConfig
+    from eitx_torch.fem import (
+        DifferenceImager,
+        GreitImager,
+        gauss_newton_absolute,
+        greit_monitoring,
+        reconstruct_monitoring,
+        simulate_eit_monitoring,
+    )
+    from eitx_torch.fem.oracle import forward_solve_oracle
+    from eitx_torch.mesh import create_mesh, pip
+
+    cpu = torch.device("cpu")
+    failed = []
+
+    def expect(cond: bool, what: str) -> None:
+        # the checks after the meshing note their failure and go on, so the
+        # phase prints every number before it fails
+        if not cond:
+            failed.append(what)
+
+    pip.pip_launches = 0
+    _, mesh = create_mesh(["1", "1"], real_polygons(), 7, 1.3, 1,
+                          show_meshing_result_method="no", device=dev)
+    launches = pip.pip_launches
+    check(launches == 1, f"create_mesh launched the kernel {launches} times")
+    cfg = SimulationConfig()
+    v, _ = simulate_eit_monitoring(mesh, cfg, device=dev)
+    # the serving .dat: the breathing cycle once per breath
+    frames = np.tile(v, (cfg.n_spir * cfg.n_minutes, 1))
+    expect(frames.shape == (1200, 208), f"monitoring {frames.shape}")
+    info, sigma_ref, el, proto = inverse.monitoring_linearization(mesh)
+    nodes, tris = info.node, info.element
+    lung = info.cond == 2
+    cent = nodes[tris].mean(axis=1)
+    times = {}
+
+    # difference imaging: the whole monitoring, then the same in float64
+    ds, imager = reconstruct_monitoring(mesh, frames, device=dev)
+    expect(ds.shape == (1200, tris.shape[0]) and np.isfinite(ds).all(),
+           f"difference images {ds.shape}")
+    build = (nodes, tris, sigma_ref, el, proto.ex_mat, proto.meas_mat)
+    imager, times["difference_build_s"] = _time_call(
+        lambda: DifferenceImager.build(*build, device=dev))
+    vt = torch.as_tensor(frames, dtype=torch.float32, device=dev)
+    dv = vt - vt[0][None]
+    times["difference_1200_frames_ms"] = cuda_ms(
+        lambda: imager.reconstruct(dv))
+    f64 = torch.float64
+    ix = [torch.as_tensor(np.asarray(a), device=dev)
+          for a in (tris, el, proto.ex_mat, proto.meas_mat)]
+    jac64 = inverse._difference_jacobian(
+        torch.as_tensor(nodes, dtype=f64, device=dev), ix[0],
+        torch.as_tensor(sigma_ref, dtype=f64, device=dev), *ix[1:],
+        nodes.shape[0])
+    chol64, info64 = inverse._factor(jac64, 1e-3)
+    expect(int(info64) == 0, "float64 factorization failed")
+    ds64 = inverse._reconstruct(jac64, chol64, dv.to(f64)).cpu().numpy()
+    jac_rel = _rel_to_max(imager.jac.cpu().numpy(), jac64.cpu().numpy())
+    img_rel = _rel_to_max(ds, ds64)
+    expect(jac_rel < INV_JAC_F64, f"Jacobian {jac_rel} from float64")
+    expect(img_rel < INV_IMAGES_F64,
+           f"difference images {img_rel} from float64")
+    # the lungs' mean change follows their conductivity schedule. The
+    # per-element variance check of tests/test_inverse.py does not hold on
+    # this slice, in float64 either: bone and fat elements vary more than
+    # lung ones (the uniform Tikhonov weight lets the low-conductivity
+    # tissues take the change); GREIT's equal-area targets do not
+    var = ds.var(axis=0)
+    sigma_t, lung_col, _ = forward._schedule(cfg, ClassMap(), None, False)
+    schedule = np.tile(sigma_t[:, lung_col], cfg.n_spir * cfg.n_minutes)
+    lung_corr = float(np.corrcoef(ds[:, lung].mean(axis=1), schedule)[0, 1])
+    expect(lung_corr > 0.95,
+           f"difference images: the lungs' change follows the schedule at "
+           f"{lung_corr}")
+
+    # GREIT at its defaults (npx 32, pads 1024 / 8192)
+    images, greit = greit_monitoring(mesh, frames, device=dev)
+    expect(images.shape == (1200, 32, 32) and np.isfinite(images).all(),
+           f"GREIT images {images.shape}")
+    greit, times["greit_build_s"] = _time_call(
+        lambda: GreitImager.build(*build, device=dev))
+    mask_dev = torch.as_tensor(greit.mask, device=dev).to(greit.R.dtype)
+    times["greit_1200_frames_ms"] = cuda_ms(
+        lambda: greit_module._apply(greit.R, mask_dev, dv))
+    t0 = time.perf_counter()
+    on_cpu = GreitImager.build(*build, device=cpu)
+    times["greit_build_cpu_s"] = time.perf_counter() - t0
+    expect(np.array_equal(greit.mask, on_cpu.mask),
+           "GREIT mask: the card and the CPU differ")
+    r_rel = _rel_to_max(greit.R.cpu().numpy(), on_cpu.R.numpy())
+    expect(r_rel < GREIT_R_CPU, f"GREIT R {r_rel} from the CPU's")
+    xmin, xmax, ymin, ymax = greit.extent
+    px = np.clip(((cent[:, 0] - xmin) / (xmax - xmin) * 32).astype(int), 0, 31)
+    py = np.clip(((cent[:, 1] - ymin) / (ymax - ymin) * 32).astype(int), 0, 31)
+    lung_px = np.zeros((32, 32), bool)
+    lung_px[py[lung], px[lung]] = True
+    pvar = images.var(axis=0)
+    expect(pvar[lung_px].mean() > pvar[greit.mask & ~lung_px].mean(),
+           "GREIT: the lung pixels do not modulate most")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "greit.npz")
+        greit.save(path)
+        again = GreitImager.load(path, device=dev)
+        expect(np.array_equal(again.reconstruct(frames[:50] - frames[0]),
+                              greit.reconstruct(frames[:50] - frames[0])),
+               "GREIT: a save / load round trip images differently")
+
+    # Gauss-Newton: +50 % in the left lung of a body at the lung's
+    # conductivity (from the homogeneous start, a tissue-table background
+    # does not fit: its residual grows)
+    left = lung & (cent[:, 0] < np.median(cent[lung, 0]))
+    sigma_true = np.full(tris.shape[0], sigma_ref[lung][0])
+    sigma_true[left] *= 1.5
+    v_meas = forward_solve_oracle(nodes, tris, sigma_true, el, proto.ex_mat,
+                                  proto.meas_mat)
+    gn = (nodes, tris, v_meas, el, proto.ex_mat, proto.meas_mat)
+    gauss_newton_absolute(*gn, n_iter=GN_ITERATIONS, device=dev)
+    loop, loop_waits, loop_ms = inverse._gauss_newton, [], []
+
+    def observed(*args, **kw):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        with device_waits() as waits:
+            a.record()
+            out = loop(*args, **kw)
+            b.record()
+        loop_waits.extend(waits)
+        loop_ms.append((a, b))
+        return out
+
+    inverse._gauss_newton = observed
+    try:
+        with device_waits() as call_waits:
+            t0 = time.perf_counter()
+            sigma, res = gauss_newton_absolute(*gn, n_iter=GN_ITERATIONS,
+                                               device=dev)
+            times["gauss_newton_call_s"] = time.perf_counter() - t0
+    finally:
+        inverse._gauss_newton = loop
+    a, b = loop_ms[0]
+    times["gauss_newton_per_iteration_ms"] = a.elapsed_time(b) / GN_ITERATIONS
+    expect(loop_waits == [], f"the Gauss-Newton loop waited at {loop_waits}")
+    t0 = time.perf_counter()
+    sigma_cpu, res_cpu = gauss_newton_absolute(*gn, n_iter=GN_ITERATIONS,
+                                               device=cpu)
+    times["gauss_newton_cpu_s"] = time.perf_counter() - t0
+    ratio = float(sigma[left].mean() / sigma[~left].mean())
+    expect(res[-1] < 0.2 * res[0], f"Gauss-Newton residuals {res.tolist()}")
+    expect(ratio >= 1.25, f"inclusion / rest {ratio}")
+    gn_rel = _rel_to_max(sigma, sigma_cpu)
+    expect(gn_rel < GN_SIGMA_CPU,
+           f"Gauss-Newton sigma {gn_rel} from the CPU's")
+    emit("inverse", nodes=int(nodes.shape[0]), elements=int(tris.shape[0]),
+         frames=list(frames.shape), pip_launches=launches,
+         jacobian_f64_rel_to_max=jac_rel, jacobian_bound=INV_JAC_F64,
+         images_f64_rel_to_max=img_rel, images_bound=INV_IMAGES_F64,
+         lung_schedule_corr=lung_corr,
+         var_by_class={c: float(var[info.cond == c].mean())
+                       for c in range(4)},
+         greit_mask_equal_cpu=True, greit_mask_pixels=int(greit.mask.sum()),
+         greit_R_cpu_rel_to_max=r_rel, greit_R_bound=GREIT_R_CPU,
+         greit_lung_var=float(pvar[lung_px].mean()),
+         greit_rest_var=float(pvar[greit.mask & ~lung_px].mean()),
+         greit_save_load_equal=True,
+         gn_residuals=res.tolist(), gn_residuals_cpu=res_cpu.tolist(),
+         gn_inclusion_ratio=ratio, gn_sigma_cpu_rel_to_max=gn_rel,
+         gn_sigma_bound=GN_SIGMA_CPU, gn_loop_device_waits=len(loop_waits),
+         gn_loop_wait_sites=sorted(set(loop_waits)),
+         gn_call_device_waits=len(call_waits),
+         gn_call_wait_sites=sorted(set(call_waits)),
+         difference_images_per_s=1200 / times[
+             "difference_1200_frames_ms"] * 1e3,
+         greit_images_per_s=1200 / times["greit_1200_frames_ms"] * 1e3,
+         warm=times, failed=failed)
+    check(not failed, "; ".join(failed))
+    return launches
+
+
+def _multipart(blob: bytes, boundary: str = "chipSmokeBoundary") -> tuple:
+    """(body, content type) of a browser form holding ``blob`` as ``file``."""
+    body = (f"--{boundary}\r\nContent-Disposition: form-data; name=\"file\"; "
+            f"filename=\"upload.zip\"\r\nContent-Type: application/zip\r\n\r\n"
+            ).encode() + blob + f"\r\n--{boundary}--\r\n".encode()
+    return body, f"multipart/form-data; boundary={boundary}"
+
+
+def _http(base: str, path: str, body=None, ctype=None) -> tuple:
+    """(status, body bytes, seconds) of one request to the service."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(base + path, data=body, method="POST"
+                                 if body is not None else "GET",
+                                 headers={"Content-Type": ctype} if ctype
+                                 else {})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read(), time.perf_counter() - t0
+    except urllib.error.HTTPError as e:
+        return e.code, e.read(), time.perf_counter() - t0
+
+
+def phase_serve(dev, image, series, want_number):
+    """The port's HTTP service over the serving pipeline on the card:
+    /health, /ui, three sequential and three concurrent image requests
+    (byte-equal .dat files, equal to a direct call's), one series request
+    through the client, /createMesh and the error routes. Returns the
+    kernel launches of the requests."""
+    import torch
+
+    from eitx_torch.core.config import ModelConfig, PipelineConfig
+    from eitx_torch.io import to_png_bytes
+    from eitx_torch.mesh import create_mesh, pip
+    from eitx_torch.pipeline import Pipeline
+    from eitx_torch.serve import EitxHTTPServer
+    from eitx_torch.serve.client import upload, zip_files_in_memory
+
+    zipped = zip_files_in_memory([("slice.png", to_png_bytes(image))])
+    body, ctype = _multipart(zipped)
+    with tempfile.TemporaryDirectory() as results:
+        pipe = Pipeline(PipelineConfig(
+            model=ModelConfig(
+                ribs_weights=os.path.join(WEIGHTS, "ribs_n_640.msgpack"),
+                axial_weights_512=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
+                axial_weights_256=os.path.join(WEIGHTS, "tissue_n_256.msgpack"),
+            ),
+            results_dir=results,
+        ), device=dev)
+        picked = []
+        preprocess = pipe._axial_from_dicom_slice
+
+        def record(ds):
+            picked.append(ds.instance_number)
+            return preprocess(ds)
+
+        pipe._axial_from_dicom_slice = record
+        inside = []  # seconds each image request spent in the pipeline
+        run_zip = pipe.run_jpg_png_zip
+
+        def timed_zip(body):
+            t0 = time.perf_counter()
+            try:
+                return run_zip(body)
+            finally:
+                torch.cuda.synchronize()
+                inside.append(time.perf_counter() - t0)
+
+        pipe.run_jpg_png_zip = timed_zip
+        direct, walls = [], []
+        for _ in range(2):  # the first call warms the pipeline
+            t0 = time.perf_counter()
+            direct.append(pipe.run_jpg_png_zip(io.BytesIO(zipped)))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        srv = EitxHTTPServer(pipe, host="127.0.0.1", port=0)
+        srv.start_background()
+        base = f"http://127.0.0.1:{srv.port}"
+        try:
+            code, health, _ = _http(base, "/health")
+            check(code == 200 and json.loads(health)["status"] == "ok",
+                  f"/health {code}")
+            code, page, _ = _http(base, "/ui")
+            check(code == 200 and b"uploadImageAxialSlice" in page,
+                  f"/ui {code}")
+            pip.pip_launches = 0
+            del inside[:]
+            sequential = [_http(base, "/uploadImageAxialSlice", body, ctype)
+                          for _ in range(3)]
+            overhead_ms = [(r[2] - t) * 1e3 for r, t in zip(sequential,
+                                                              inside)]
+            with ThreadPoolExecutor(max_workers=3) as pool:
+                concurrent = [f.result() for f in [
+                    pool.submit(_http, base, "/uploadImageAxialSlice", body,
+                                ctype) for _ in range(3)]]
+            t0 = time.perf_counter()
+            series_answer = upload(base, "dicom_sequences_auto",
+                                   series.getvalue())
+            series_s = time.perf_counter() - t0
+            mesh_body = json.dumps({"params": [1, 1, 7],
+                                    "polygons": real_polygons()}).encode()
+            code, meshed, mesh_s = _http(base, "/createMesh", mesh_body,
+                                         "application/json")
+            check(code == 200, f"/createMesh {code}: {meshed[:200]}")
+            launches = pip.pip_launches
+            bad, _, _ = _http(base, "/uploadImageAxialSlice",
+                              *_multipart(b"not a zip"))
+            missing, _, _ = _http(base, "/nope", b"", "application/zip")
+        finally:
+            srv.shutdown()
+        check(bad == 400 and missing == 404,
+              f"a bad upload gave {bad}, an unknown route {missing}")
+        answers = [json.loads(r[1]) for r in sequential + concurrent]
+        check(all(r[0] == 200 for r in sequential + concurrent)
+              and all(a["status"] == "success" for a in answers),
+              "an image request failed")
+        dats = [open(a["saved_file_name"], "rb").read()
+                for a in direct + answers]
+        check(len({a["saved_file_name"] for a in direct + answers}) == 8,
+              "two requests wrote one file")
+        check(all(d == dats[0] for d in dats),
+              ".dat files differ between direct, sequential and concurrent "
+              "requests")
+        _check_dat(direct[0], "direct")
+        check(series_answer["status"] == "success", "series request failed")
+        check(picked[-1] == want_number,
+              f"the series request picked {picked[-1]}, want {want_number}")
+        _check_dat(series_answer, "series over HTTP")
+        n_elements = json.loads(meshed)["n_elements"]
+        _, ref_mesh = create_mesh(["1", "1"], real_polygons(), lc=7.0,
+                                  show_meshing_result_method="no", device=dev)
+        check(n_elements == len(ref_mesh["TRIANGLES"]),
+              f"/createMesh gave {n_elements} elements")
+    check(launches == 8, f"pip kernel launched {launches} times in 7 "
+          "pipeline requests and one /createMesh")
+    emit("serve", direct_s=walls, sequential_s=[r[2] for r in sequential],
+         concurrent_s=[r[2] for r in concurrent],
+         # a request's wall time less its time inside the pipeline: the
+         # upload, the multipart parse, the answer's JSON, the HTTP round
+         http_overhead_ms=overhead_ms,
+         series_s=series_s, series_body_bytes=series.getbuffer().nbytes,
+         picked_slice=picked[-1], create_mesh_s=mesh_s,
+         create_mesh_elements=n_elements, dat_bytes_equal=True,
+         pip_launches=launches, bad_upload=bad, unknown_route=missing)
+    return launches
+
+
+def phase_eval(dev, image, labels):
+    """PixelLevelEvaluator (trained 512 checkpoint, batch 16) over 32
+    variants of the phantom slice with YOLO polygon labels traced from the
+    fixture's labels: its per-class results against evaluate_dataset of
+    the same pairs on the CPU, with the labels the card gave."""
+    import torch
+
+    from eitx_torch.contours.formats import to_yolo_label
+    from eitx_torch.contours.trace import find_external_contours
+    from eitx_torch.eval import (
+        PixelLevelEvaluator,
+        evaluate_dataset,
+        mask_from_yolo_labels,
+    )
+    from eitx_torch.io import to_png_bytes
+
+    shifts = [(0, 0), (6, 0), (0, -9), (-5, 4), (11, 7), (-8, -12), (3, 15),
+              (-14, 2)]
+    with tempfile.TemporaryDirectory() as root:
+        img_dir, lab_dir = (os.path.join(root, d) for d in ("images",
+                                                             "labels"))
+        os.makedirs(img_dir)
+        os.makedirs(lab_dir)
+        for k, (dy, dx) in enumerate(shifts):
+            for flip in range(4):
+                axes = [a for a, on in ((0, flip & 1), (1, flip & 2)) if on]
+                img = np.roll(np.flip(image, axes), (dy, dx), (0, 1))
+                lab = np.roll(np.flip(labels, axes), (dy, dx), (0, 1))
+                name = f"v{k}_{flip}"
+                with open(os.path.join(img_dir, name + ".png"), "wb") as fh:
+                    fh.write(to_png_bytes(np.ascontiguousarray(img)))
+                lines = [to_yolo_label(cid, c, lab.shape)
+                         for cid in range(4)
+                         for c in find_external_contours(
+                             (lab == cid).astype(np.uint8))
+                         if c.shape[0] >= 3]
+                with open(os.path.join(lab_dir, name + ".txt"), "w") as fh:
+                    fh.write("\n".join(lines))
+        ev = PixelLevelEvaluator(
+            model_path=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
+            images_dir=img_dir, labels_dir=lab_dir, img_size=512, batch=16,
+            device=dev)
+        seen = []
+        segment = ev.segmenter.segment_labels
+
+        def record(images):
+            out = segment(images)
+            seen.append((images.shape, out))
+            return out
+
+        ev.segmenter.segment_labels = record
+        ev.evaluate()  # first run: the segmenter's first shapes
+        del seen[:]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results = ev.evaluate()
+        eval_s = time.perf_counter() - t0
+        files = sorted(os.listdir(img_dir))
+        pred = np.concatenate([out for _, out in seen])
+        pairs = [(mask_from_yolo_labels(os.path.join(
+            lab_dir, f[:-4] + ".txt"), 512, 512), (p + 1).astype(np.uint8))
+            for f, p in zip(files, pred)]
+    check([s for s, _ in seen] == [(16, 512, 512)] * 2,
+          f"segmenter batches {[s for s, _ in seen]}")
+    check(results == evaluate_dataset(pairs),
+          "harness results differ from evaluate_dataset of its pairs")
+    # a sanity bound on the soft tissues and lungs; thin bone is left out
+    # (the harness segments at its defaults, confidence 0.3 at prototype
+    # resolution, and marks 3.9 times the labelled bone area: IoU 0.17 on
+    # the CPU)
+    iou = {c: m["iou"] for c, m in results.items()}
+    check(all(iou[c] > 0.5 for c in (1, 2, 3)), f"per-class IoU {iou}")
+    emit("eval", images=len(files), batch=16, per_class=results,
+         images_per_s=len(files) / eval_s, eval_s=eval_s)
+
+
 def main() -> int:
     import torch
 
@@ -1284,8 +1783,8 @@ def main() -> int:
     timed(phase_image, dev)
     vol, front = timed(series_inputs)
     timed(phase_ribs, dev, front, series_fixture)
-    series_launches, (points, polys) = timed(phase_series, dev, vol,
-                                             series_fixture, image)
+    series_launches, (points, polys), series = timed(
+        phase_series, dev, vol, series_fixture, image)
     launches += series_launches
     emit("kernel_pip", inputs="series path, request 1",
          **compare_pip(points, polys, timed=False))
@@ -1294,6 +1793,11 @@ def main() -> int:
     emit("kernel_pip", inputs="factory path, subject 0",
          **compare_pip(points, polys, timed=False))
     timed(phase_solvers, dev, mesh)
+    launches += timed(phase_inverse, dev)
+    launches += timed(phase_serve, dev, image, series,
+                      int(series_fixture["slice_index"]) + 1)
+    del series
+    timed(phase_eval, dev, image, ref_labels)
 
     print(json.dumps({"kernels": [{
         "name": "pip",

@@ -18,10 +18,17 @@ from .forward import (
     MeshInfo,
     build_sigma_frames,
     compact_mesh_nodes,
+    load_mesh_txt,
     prepare_mesh_info,
     simulate_eit_monitoring,
     simulate_eit_monitoring_subjects,
     write_dat,
+)
+from .greit import GreitImager, greit_monitoring
+from .inverse import (
+    DifferenceImager,
+    gauss_newton_absolute,
+    reconstruct_monitoring,
 )
 
 __all__ = [
@@ -45,9 +52,15 @@ __all__ = [
     "sheffield_ex_mat",
     "sheffield_monitoring",
     "sheffield_solve_admittance",
+    "DifferenceImager",
+    "GreitImager",
+    "greit_monitoring",
+    "gauss_newton_absolute",
+    "reconstruct_monitoring",
     "MeshInfo",
     "build_sigma_frames",
     "compact_mesh_nodes",
+    "load_mesh_txt",
     "prepare_mesh_info",
     "simulate_eit_monitoring",
     "simulate_eit_monitoring_subjects",

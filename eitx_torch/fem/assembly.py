@@ -51,10 +51,10 @@ def element_geometry(nodes: torch.Tensor, tris: torch.Tensor):
     p = nodes[tris]  # (M, 3, 2)
     x = p[..., 0]
     y = p[..., 1]
-    roll1 = [1, 2, 0]
-    roll2 = [2, 0, 1]
-    b = y[:, roll1] - y[:, roll2]  # (M, 3)
-    c = x[:, roll2] - x[:, roll1]  # (M, 3)
+    # the cyclic shifts i+1 and i+2 as rolls: indexing a CUDA tensor with a
+    # Python list copies the list to the card and waits for it
+    b = y.roll(-1, 1) - y.roll(1, 1)  # (M, 3)
+    c = x.roll(1, 1) - x.roll(-1, 1)  # (M, 3)
     area2 = x[:, 0] * b[:, 0] + x[:, 1] * b[:, 1] + x[:, 2] * b[:, 2]
     area = 0.5 * area2.abs()
     valid = area > 1e-12

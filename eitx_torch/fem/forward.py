@@ -88,6 +88,28 @@ def prepare_mesh_info(
     )
 
 
+def load_mesh_txt(fpath: str, classes: ClassMap = ClassMap()) -> MeshInfo:
+    """Load the FEMM-format text mesh ("# NODES" / "# TRIANGLES" sections,
+    1-based node ids; reference load_mesh, model_generator.py:58-90)."""
+    nodes, tris, cls = [], [], []
+    key = ""
+    with open(fpath) as fh:
+        for line in fh:
+            if not line.strip():
+                continue
+            s = line.strip().split(" ")
+            if "#" in line:
+                key = line.strip()[2:]
+            elif key == "NODES":
+                nodes.append([float(s[1]), float(s[2])])
+            elif key == "TRIANGLES":
+                tris.append([int(s[i]) - 1 for i in range(3)])
+                cls.append(int(float(s[-1])))
+    return prepare_mesh_info(
+        {"NODES": nodes, "TRIANGLES": tris, "CLASS": cls}, classes
+    )
+
+
 def compact_mesh_nodes(mesh: MeshInfo) -> MeshInfo:
     """Drop nodes unused by any element, reindexing elements
     (reference check_mesh_nodes, model_generator.py:93-116 — O(n^2) loop

@@ -315,3 +315,163 @@ def test_femm_path_on_card_equals_cpu(dev):
                                       5e4, elecs, device=d)
                  for d in (dev, "cpu"))
     assert got.shape == (8, 16, 16) and _rel_to_max(got, want) < 1e-3
+
+
+def _imaging_disk():
+    """The classed disk of the CPU inverse tests at 100 mesh units, its
+    linearization and a breathing monitoring simulated on the CPU."""
+    from eitx_torch.core.config import SimulationConfig
+    from eitx_torch.fem import simulate_eit_monitoring
+    from eitx_torch.fem.inverse import monitoring_linearization
+
+    mesh = _disk_subject(48, 6, radius=100.0)
+    cfg = SimulationConfig(n_points=8, pad_nodes_to=256, pad_elems_to=512)
+    v, _ = simulate_eit_monitoring(mesh, cfg, device="cpu")
+    return mesh, cfg, v, monitoring_linearization(mesh, cfg=cfg)
+
+
+def test_jacobian_on_card_float32_vs_float64(dev):
+    """The adjoint Jacobian on the card in float32 against float64 on the
+    card, and the difference images against the CPU's: float32's own error
+    (tests/test_torch_inverse.py's bound, 2e-5 of scale; the images 3e-4)."""
+    from eitx_torch.fem import reconstruct_monitoring
+    from eitx_torch.fem.inverse import _difference_jacobian
+
+    mesh, cfg, v, (info, sigma_ref, el, proto) = _imaging_disk()
+    ds, imager = reconstruct_monitoring(mesh, v, cfg=cfg, device=dev)
+    assert imager.jac.device.type == "cuda"
+    idx = [torch.as_tensor(np.asarray(a), device=dev)
+           for a in (info.element, el, proto.ex_mat, proto.meas_mat)]
+    f64 = _difference_jacobian(
+        torch.as_tensor(info.node, dtype=torch.float64, device=dev), idx[0],
+        torch.as_tensor(sigma_ref, dtype=torch.float64, device=dev),
+        *idx[1:], info.node.shape[0]).cpu().numpy()
+    assert _rel_to_max(imager.jac.cpu().numpy(), f64) < 2e-5
+    want, _ = reconstruct_monitoring(mesh, v, cfg=cfg, device="cpu")
+    assert _rel_to_max(ds, want) < 3e-4
+
+
+def test_greit_mask_on_card_equals_cpu(dev):
+    from eitx_torch.fem import greit_monitoring
+
+    mesh, cfg, v, _ = _imaging_disk()
+    got, on_card = greit_monitoring(mesh, v, cfg=cfg, device=dev)
+    want, on_cpu = greit_monitoring(mesh, v, cfg=cfg, device="cpu")
+    assert on_card.R.device.type == "cuda"
+    assert np.array_equal(on_card.mask, on_cpu.mask)
+    assert _rel_to_max(on_card.R.cpu().numpy(), on_cpu.R.numpy()) < 3e-4
+    assert _rel_to_max(got, want) < 3e-4
+
+
+def test_gauss_newton_loop_never_waits_for_the_card(dev):
+    """Six iterations on the card: the loop makes the host wait for the
+    device nowhere (torch's sync debug mode; after a first call, which
+    sets up the card's solver), and sigma agrees with the CPU's run."""
+    from eitx_torch.fem import (
+        create_protocol,
+        gauss_newton_absolute,
+        place_electrodes_equal_spacing,
+    )
+    import eitx_torch.fem.inverse as inverse
+    from eitx_torch.fem.oracle import forward_solve_oracle
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from meshfix import disk_mesh
+
+    nodes, tris = disk_mesh(48, 7)
+    el = place_electrodes_equal_spacing(nodes, tris, 16, starting_angle=np.pi)
+    p = create_protocol(16, 1, 1, "std")
+    cent = nodes[tris].mean(1)
+    sigma_true = np.full((tris.shape[0],), 0.5)
+    sigma_true[np.linalg.norm(cent - [0.35, 0.2], axis=1) < 0.25] = 1.5
+    args = (nodes, tris, forward_solve_oracle(nodes, tris, sigma_true, el,
+                                              p.ex_mat, p.meas_mat),
+            el, p.ex_mat, p.meas_mat)
+    gauss_newton_absolute(*args, n_iter=1, device=dev)  # the first shapes
+    loop, waits = inverse._gauss_newton, []
+
+    def watched(*a, **kw):
+        with chip_smoke.device_waits() as seen:
+            out = loop(*a, **kw)
+        waits.extend(seen)
+        return out
+
+    inverse._gauss_newton = watched
+    try:
+        sigma, res = gauss_newton_absolute(*args, n_iter=6, device=dev)
+    finally:
+        inverse._gauss_newton = loop
+    assert waits == []
+    want, want_res = gauss_newton_absolute(*args, n_iter=6, device="cpu")
+    assert _rel_to_max(sigma, want) < 1e-3
+    assert res[-1] < 0.2 * res[0]
+
+
+def test_concurrent_requests_on_card_write_equal_dat(dev, tmp_path):
+    """Three concurrent HTTP image requests and a direct call on the card
+    (3 frames): the server's lock keeps the scatter deterministic, so the
+    four .dat files are byte-equal."""
+    import json
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from eitx_torch.core.config import (
+        ModelConfig,
+        PipelineConfig,
+        SimulationConfig,
+    )
+    from eitx_torch.io import to_png_bytes
+    from eitx_torch.pipeline import Pipeline
+    from eitx_torch.serve import EitxHTTPServer
+    from eitx_torch.serve.client import zip_files_in_memory
+
+    image = np.load(os.path.join(DATA, "torch_smoke_512.npz"))["image"]
+    pipe = Pipeline(PipelineConfig(
+        model=ModelConfig(axial_weights_512=os.path.join(
+            ROOT, "weights", "tissue_n_512.msgpack")),
+        sim=SimulationConfig(n_points=3), results_dir=str(tmp_path),
+    ), device=dev)
+    zipped = zip_files_in_memory([("slice.png", to_png_bytes(image))])
+    srv = EitxHTTPServer(pipe, host="127.0.0.1", port=0)
+    srv.start_background()
+
+    def post():
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{srv.port}/uploadImageAxialSlice",
+            data=zipped, headers={"Content-Type": "application/zip"},
+            method="POST")
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            return json.loads(resp.read())
+
+    try:
+        with ThreadPoolExecutor(max_workers=3) as pool:
+            answers = [f.result(timeout=600)
+                       for f in [pool.submit(post) for _ in range(3)]]
+    finally:
+        srv.shutdown()
+    answers.append(pipe.run_jpg_png(image))
+    dats = [open(a["saved_file_name"], "rb").read() for a in answers]
+    assert len({a["saved_file_name"] for a in answers}) == 4
+    assert all(d == dats[0] for d in dats) and len(dats[0].splitlines()) == 36
+
+
+def test_stiffness_assembly_never_waits_for_the_card(dev):
+    """The Gauss-Newton loop assembles K every iteration: the deterministic
+    scatter and the element geometry make the host wait for the card
+    nowhere."""
+    from eitx_torch.fem.assembly import assemble_stiffness
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from meshfix import disk_mesh
+
+    nodes, tris = disk_mesh(48, 7)
+    sigma = np.random.default_rng(4).uniform(0.1, 1.0, tris.shape[0])
+    args = (torch.as_tensor(nodes, dtype=torch.float32, device=dev),
+            torch.as_tensor(tris, device=dev),
+            torch.as_tensor(sigma, dtype=torch.float32, device=dev),
+            nodes.shape[0])
+    want = assemble_stiffness(*args)
+    with chip_smoke.device_waits() as waits:
+        got = assemble_stiffness(*args)
+    assert waits == []
+    assert torch.equal(got, want)

@@ -197,3 +197,25 @@ def test_scatter_assembly_restores_determinism_flag():
     nodes, tris, cls = disk_mesh_with_classes(24, 3)
     ClassStiffness.build(nodes, tris, cls, n_classes=5, device="cpu")
     assert torch.are_deterministic_algorithms_enabled() == before
+
+
+@pytest.mark.parametrize("swap", [False, True])
+def test_load_mesh_txt_equals_eitx(tmp_path, swap):
+    """The FEMM-format text mesh (1-based ids, a class per triangle) loads
+    into the same MeshInfo in both packages, class groups included."""
+    from eitx.fem import load_mesh_txt as eitx_load_mesh_txt
+    from eitx_torch.core.config import ClassMap as PortClassMap
+    from eitx_torch.fem import load_mesh_txt
+    from eitx_torch.mesh.export import write_mesh_txt
+
+    nodes, tris, cls = disk_mesh_with_classes(24, 3)
+    path = str(tmp_path / "mesh.txt")
+    write_mesh_txt(path, {"NODES": nodes * 37.5, "TRIANGLES": tris,
+                          "CLASS": cls})
+    got = load_mesh_txt(path, PortClassMap(compat_swap_lung_fat=swap))
+    want = eitx_load_mesh_txt(path, ClassMap(compat_swap_lung_fat=swap))
+    assert np.array_equal(got.element, want.element)
+    assert np.array_equal(got.element, tris)
+    assert np.array_equal(got.node, want.node)
+    assert np.array_equal(got.cond, want.cond)
+    assert got.classes_gr == want.classes_gr

@@ -294,3 +294,45 @@ def test_axial_stack_to_frontal_exact(position, orientation, patient):
     want = ref_frontal(vol, position, orientation, patient)
     assert np.array_equal(got, want)
     assert np.array_equal(middle_frontal_slice(got), ref_middle(want))
+
+
+def _same_shape_stacks():
+    """The battery's masks stacked by shape: the first four of each shape
+    that has two or more."""
+    groups = {}
+    for m in _battery():
+        groups.setdefault(m.shape, []).append(m)
+    return [np.stack(v[:4]) for v in groups.values() if len(v) > 1]
+
+
+@pytest.mark.parametrize("name", ["label_components", "largest_component",
+                                  "fill_holes"])
+def test_batch_forms_equal_eitx_and_each_image(name):
+    """The ``*_batch`` forms (eitx's ``jax.vmap``s) equal eitx's on every
+    pixel, and the port's single-image function on each image."""
+    from eitx.image import cc as ref_cc
+
+    stacks = _same_shape_stacks()
+    assert len(stacks) >= 2
+    for stack in stacks:
+        want = np.asarray(getattr(ref_cc, f"{name}_batch")(stack))
+        got = _np(getattr(port, f"{name}_batch")(stack, device="cpu"))
+        assert got.shape == stack.shape and np.array_equal(got, want)
+        for m, one in zip(stack, got):
+            assert np.array_equal(
+                one, _np(getattr(port, name)(m, device="cpu")))
+
+
+@pytest.mark.parametrize("flipud", [False, True])
+def test_body_mask_from_hu_batch_exact(flipud):
+    stack = np.stack([hu for hu in _hu_cases() if hu.shape == (160, 160)])
+    stack = stack[:2] if flipud else stack[2:]  # rich and plain phantoms
+    from eitx.image.bodymask import body_mask_from_hu_batch
+
+    want = np.asarray(body_mask_from_hu_batch(stack, flipud=flipud))
+    got = _np(port.body_mask_from_hu_batch(stack, flipud=flipud,
+                                           device="cpu"))
+    assert got.dtype == np.uint8 and np.array_equal(got, want)
+    for hu, one in zip(stack, got):
+        assert np.array_equal(one, _np(port.body_mask_from_hu(
+            hu, flipud=flipud, device="cpu")))

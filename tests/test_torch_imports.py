@@ -25,6 +25,11 @@ MODULES = [
     "eitx_torch.io",
     "eitx_torch.select",
     "eitx_torch.pipeline",
+    "eitx_torch.serve",
+    "eitx_torch.serve.client",
+    "eitx_torch.eval",
+    "eitx_torch.core.toml_config",
+    "eitx_torch.core.log",
 ]
 
 
