@@ -21,7 +21,9 @@ its plain PyTorch version:
   - inverse imaging (difference, GREIT, Gauss-Newton) of the serving
     monitoring on the real slice at the serving lc 7;
   - the HTTP service over the serving ``Pipeline``, and the pixel-level
-    eval harness.
+    eval harness;
+  - training: the YOLOv11-n segmenter at 512^2 and the rib detector at
+    640^2 through ``Trainer``, ``device_batches`` and ``fit``.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -77,7 +79,8 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             device wait inside the loop); warm times and images per second
   serve     EitxHTTPServer over the serving Pipeline: /health, /ui, three
             sequential and three concurrent multipart image requests
-            (byte-equal .dat files, equal to a direct call's), the series
+            (byte-equal .dat files, equal to a direct call's; the three
+            inside the pipeline at once, no lock), the series
             zip through the client (the fixture's pick), /createMesh, a
             bad upload (400) and an unknown route (404); one kernel
             launch per request; HTTP overhead over the direct call
@@ -85,6 +88,16 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             flips and shifts of the 512^2 phantom with YOLO labels traced
             from the fixture's labels: equal to evaluate_dataset of the
             card's labels; images per second
+  train     the segmenter at train_tissue's 512 defaults (batch 8, TAL,
+            mask top-K 160 at mask resolution 256) on a store of 32
+            phantoms labelled on the card, fed by device_batches: 3 warm-up
+            steps, 20 timed steps through fit with the EMA (ms per step by
+            CUDA events, images per second, peak memory, first and last
+            loss), 5 profiled steps (idle share, top kernels); one step on
+            the card against the same step on the CPU (two images); a
+            .train round trip that continues as the run it came from; the
+            deployment file labelling the 512^2 phantom; the rib detector
+            at 640 (batch 4, 16 rib phantoms), 10 timed steps
 Every phase prints its seconds. Then the kernels line, the card's name
 and power limit, and the result line. Imports nothing of JAX or of the
 JAX package.
@@ -100,6 +113,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zipfile
 from concurrent.futures import ThreadPoolExecutor
@@ -1576,15 +1590,22 @@ def phase_serve(dev, image, series, want_number):
 
         pipe._axial_from_dicom_slice = record
         inside = []  # seconds each image request spent in the pipeline
+        active = [0, 0]  # requests inside the pipeline now, and at most
+        count = threading.Lock()
         run_zip = pipe.run_jpg_png_zip
 
         def timed_zip(body):
             t0 = time.perf_counter()
+            with count:
+                active[0] += 1
+                active[1] = max(active)
             try:
                 return run_zip(body)
             finally:
                 torch.cuda.synchronize()
                 inside.append(time.perf_counter() - t0)
+                with count:
+                    active[0] -= 1
 
         pipe.run_jpg_png_zip = timed_zip
         direct, walls = [], []
@@ -1609,10 +1630,14 @@ def phase_serve(dev, image, series, want_number):
                           for _ in range(3)]
             overhead_ms = [(r[2] - t) * 1e3 for r, t in zip(sequential,
                                                               inside)]
+            active[1] = 0
+            t0 = time.perf_counter()
             with ThreadPoolExecutor(max_workers=3) as pool:
                 concurrent = [f.result() for f in [
                     pool.submit(_http, base, "/uploadImageAxialSlice", body,
                                 ctype) for _ in range(3)]]
+            concurrent_wall_s = time.perf_counter() - t0
+            at_once = active[1]
             t0 = time.perf_counter()
             series_answer = upload(base, "dicom_sequences_auto",
                                    series.getvalue())
@@ -1653,8 +1678,16 @@ def phase_serve(dev, image, series, want_number):
               f"/createMesh gave {n_elements} elements")
     check(launches == 8, f"pip kernel launched {launches} times in 7 "
           "pipeline requests and one /createMesh")
+    check(at_once >= 2, f"at most {at_once} concurrent request in the "
+          "pipeline at once")
     emit("serve", direct_s=walls, sequential_s=[r[2] for r in sequential],
          concurrent_s=[r[2] for r in concurrent],
+         # the three concurrent requests from the first sent to the last
+         # answered, against three sequential ones; the requests inside the
+         # pipeline at once (the service holds no lock)
+         concurrent_wall_s=concurrent_wall_s,
+         sequential_sum_s=sum(r[2] for r in sequential),
+         concurrent_inside_at_once=at_once,
          # a request's wall time less its time inside the pipeline: the
          # upload, the multipart parse, the answer's JSON, the HTTP round
          http_overhead_ms=overhead_ms,
@@ -1741,6 +1774,213 @@ def phase_eval(dev, image, labels):
          images_per_s=len(files) / eval_s, eval_s=eval_s)
 
 
+# the train phase: train_tissue's defaults at 512 (the run that made
+# weights/tissue_n_512.msgpack) and train_ribs' at 640
+TRAIN_SEG = dict(imgsz=512, nc=4, variant="n", mask_topk=160,
+                 max_instances=12, proto_stride=4, assigner="tal",
+                 warmup_steps=10, total_steps=100)
+TRAIN_SEG_BATCH, TRAIN_SEG_STORE, TRAIN_MASK_RES = 8, 32, 256
+TRAIN_RIBS = dict(imgsz=640, nc=1, variant="n", segment=False,
+                  max_instances=24, warmup_steps=10, total_steps=100)
+TRAIN_RIBS_BATCH, TRAIN_RIBS_STORE = 4, 16
+# the card's step against the CPU's, same parameters and batch, TF32 off:
+# float32 convolutions in other orders (cuDNN vs oneDNN) through the
+# network and its backward. The bounds sit between that reading and the
+# same step's with TF32 on (the control, read in every run): both are
+# written in PERF.md
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_STATS_OF_SCALE = 1e-5
+# a resumed run's second step against the continuing run's, both on the card
+TRAIN_RESUME_RTOL = 1e-5
+
+
+def _timed_steps(run, steps: int) -> float:
+    """ms of one step of ``run()`` (``steps`` steps) between two CUDA
+    events."""
+    import torch
+
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = run()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / steps, out
+
+
+def phase_train(dev, image):
+    """The training path on the card: the YOLOv11-n segmenter at 512 and
+    the rib detector at 640 through ``Trainer``, ``device_batches`` and
+    ``fit`` with the EMA; ms per step, images per second, peak memory, a
+    profiled stretch (idle share, top kernels); one step on the card
+    against the same step on the CPU; a ``.train`` round trip that
+    continues as the run it came from; the deployment file labelling the
+    512^2 phantom on the card."""
+    import torch
+
+    from eitx_torch.models.yolo.checkpoint import (
+        torch_to_flax_tree,
+        write_msgpack_checkpoint,
+    )
+    from eitx_torch.models.yolo.infer import TissueSegmenter
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from eitx_torch.train.data import device_batches
+    from eitx_torch.train.phantoms import phantom_batch, rib_batch
+    from eitx_torch.train.trainer import fit
+
+    t0 = time.perf_counter()
+    size = TRAIN_SEG["imgsz"]
+    store = phantom_batch(TRAIN_SEG_STORE, size, TRAIN_SEG["max_instances"],
+                          np.random.default_rng(0), mask_res=TRAIN_MASK_RES,
+                          store_u8=True, device=dev)
+    store_s = time.perf_counter() - t0
+    check(store["valid"].sum(1).min() >= 4, "a phantom has under 4 targets")
+    cfg = TrainConfig(**TRAIN_SEG)
+    trainer = Trainer(cfg, seed=0, device=dev)
+    stream = device_batches(store, TRAIN_SEG_BATCH, seed=0, device=dev)
+    first = None
+    for _ in range(3):  # warm-up: cuDNN's choices, the allocator
+        m = trainer.train_step(next(stream))
+        first = first or m
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    steps = 20
+    step_ms, (last, ema) = _timed_steps(
+        lambda: fit(trainer, stream, steps, log_every=0), steps)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(v) for v in last.values()),
+          f"non-finite metrics {last}")
+    check(last["loss"] < first["loss"], f"loss {first['loss']} -> "
+          f"{last['loss']} over {steps + 3} steps")
+    check(trainer.state.step == steps + 3, "step count")
+    profile = profiled_request(lambda: [
+        trainer.train_step(next(stream), device_metrics=True)
+        for _ in range(5)])
+
+    # one step on the card against the same step on the CPU (two images
+    # of a batch: the CPU's step at 512^2 takes seconds an image)
+    batch = {k: v[:2] for k, v in next(stream).items()}
+    cpu = Trainer(cfg, seed=1, device="cpu")
+    m_cpu = cpu.train_step({k: v.cpu() for k, v in batch.items()})
+    scale = max(float(t.abs().max()) for t in cpu.state.batch_stats.values())
+
+    def against_cpu():
+        """The same step on the card: (loss components' relative errors,
+        batch statistics' error of their scale)."""
+        card = Trainer(cfg, seed=1, device=dev)
+        m_card = card.train_step(batch)
+        return ({k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
+                 for k in m_cpu if abs(m_cpu[k]) > 0},
+                max(float((card.state.batch_stats[n].cpu() - t).abs().max())
+                    for n, t in cpu.state.batch_stats.items()) / scale)
+
+    loss_rel, stats_err = against_cpu()
+    check(max(loss_rel.values()) <= TRAIN_LOSS_RTOL,
+          f"card vs CPU loss {loss_rel}")
+    check(stats_err <= TRAIN_STATS_OF_SCALE,
+          f"card vs CPU batch_stats {stats_err} of scale")
+    # the control: TF32 on for this step only (the port never runs so);
+    # the bounds must tell it from the float32 step
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32_loss_rel, tf32_stats_err = against_cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    check(max(tf32_loss_rel.values()) > TRAIN_LOSS_RTOL
+          or tf32_stats_err > TRAIN_STATS_OF_SCALE,
+          f"the TF32 step passes the bounds: loss {tf32_loss_rel}, "
+          f"batch_stats {tf32_stats_err} of scale")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a .train file continues as the run it came from
+        path = os.path.join(tmp, "seg.train")
+        save_checkpoint(path, trainer.state)
+        resumed = Trainer(cfg, seed=7, device=dev)
+        resumed.state = load_checkpoint(path, resumed.state)
+        batch = next(stream)
+        m_res, m_cont = resumed.train_step(batch), trainer.train_step(batch)
+        check(resumed.state.step == trainer.state.step
+              and resumed.opt_state.count == trainer.opt_state.count,
+              "the resumed step count")
+        resume_rel = max(abs(m_res[k] - m_cont[k]) / max(abs(m_cont[k]),
+                                                          1e-30)
+                         for k in m_cont)
+        check(resume_rel <= 1e-6, f"resumed step's loss {m_res} vs {m_cont}")
+        # the step's backward is not bit-reproducible on the card (cuDNN's
+        # gradient algorithms and the pooling / upsampling backward add in
+        # no fixed order), and Adam turns a parameter whose gradient is
+        # float32 noise into a +-lr move: the parameters after it differ
+        # there. The step after must still agree.
+        with torch.no_grad():
+            p_err = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(resumed.state.params.values(),
+                                        trainer.state.params.values()))
+        batch = next(stream)
+        m_res2, m_cont2 = resumed.train_step(batch), trainer.train_step(batch)
+        resume2_rel = max(abs(m_res2[k] - m_cont2[k])
+                          / max(abs(m_cont2[k]), 1e-30) for k in m_cont2)
+        check(resume2_rel <= TRAIN_RESUME_RTOL,
+              f"the step after the resumed one: {m_res2} vs {m_cont2}")
+        # the deployment file: EMA parameters, batch statistics, meta
+        deploy = os.path.join(tmp, f"tissue_n_{size}.msgpack")
+        write_msgpack_checkpoint(deploy, {
+            "params": torch_to_flax_tree(ema)[0],
+            "batch_stats": torch_to_flax_tree(trainer.state.batch_stats)[1],
+            "meta": {"variant": "n", "imgsz": size, "nc": 4,
+                     "steps": int(trainer.state.step),
+                     "mask_res": TRAIN_MASK_RES, "mask_topk": 160,
+                     "proto_stride": 4}})
+        seg = TissueSegmenter(size, weights=deploy, variant="n",
+                              dtype="float32", device=dev)
+        labels, _ = seg.predict_labels(image)
+    check(labels.shape == image.shape[:2] and labels.min() >= -1
+          and labels.max() <= 3, f"labels {labels.shape}")
+
+    # the rib detector at 640
+    ribs = rib_batch(TRAIN_RIBS_STORE, TRAIN_RIBS["imgsz"],
+                     TRAIN_RIBS["max_instances"],
+                     np.random.default_rng(0))
+    rtrainer = Trainer(TrainConfig(**TRAIN_RIBS), seed=0, device=dev)
+    rstream = device_batches(ribs, TRAIN_RIBS_BATCH, seed=0, device=dev)
+    rfirst = rtrainer.train_step(next(rstream))
+    rtrainer.train_step(next(rstream))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rsteps = 10
+    rstep_ms, (rlast, _) = _timed_steps(
+        lambda: fit(rtrainer, rstream, rsteps, log_every=0), rsteps)
+    rpeak = torch.cuda.max_memory_allocated() / 2**30
+    check(all(np.isfinite(v) for v in rlast.values()),
+          f"non-finite rib metrics {rlast}")
+    emit("train", segmenter=dict(
+        config=TRAIN_SEG, batch=TRAIN_SEG_BATCH, store=TRAIN_SEG_STORE,
+        mask_res=TRAIN_MASK_RES, store_s=store_s, step_ms=step_ms,
+        images_per_s=TRAIN_SEG_BATCH * 1e3 / step_ms,
+        peak_memory_gib=peak_gib, first_loss=first, last_loss=last,
+        profile_5_steps=profile),
+        card_vs_cpu=dict(images=2, loss_rel=loss_rel,
+                         batch_stats_of_scale=stats_err,
+                         loss_rtol_bound=TRAIN_LOSS_RTOL,
+                         stats_bound=TRAIN_STATS_OF_SCALE,
+                         tf32_control=dict(
+                             loss_rel=tf32_loss_rel,
+                             batch_stats_of_scale=tf32_stats_err)),
+        resume=dict(loss_rel=resume_rel, next_loss_rel=resume2_rel,
+                    next_loss_rtol_bound=TRAIN_RESUME_RTOL,
+                    params_after_of_scale=p_err,
+                    step=int(trainer.state.step)),
+        deployment=dict(labels_classes=sorted(int(c) for c in
+                                              np.unique(labels))),
+        ribs=dict(config=TRAIN_RIBS, batch=TRAIN_RIBS_BATCH,
+                  store=TRAIN_RIBS_STORE, step_ms=rstep_ms,
+                  images_per_s=TRAIN_RIBS_BATCH * 1e3 / rstep_ms,
+                  peak_memory_gib=rpeak, first_loss=rfirst, last_loss=rlast))
+
+
 def main() -> int:
     import torch
 
@@ -1798,6 +2038,7 @@ def main() -> int:
                       int(series_fixture["slice_index"]) + 1)
     del series
     timed(phase_eval, dev, image, ref_labels)
+    timed(phase_train, dev, image)
 
     print(json.dumps({"kernels": [{
         "name": "pip",

@@ -18,6 +18,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import threading
 from typing import List, Optional
 
 import numpy as np
@@ -31,34 +32,36 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                     "native", "contours.cpp")
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
     global _LIB, _LIB_TRIED
-    if _LIB_TRIED:
+    with _LOAD_LOCK:  # concurrent first callers wait for one build
+        if _LIB_TRIED:
+            return _LIB
+        _LIB_TRIED = True
+        try:
+            so = build_shared(
+                os.path.abspath(_SRC), "libeitxcontours",
+                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"], timeout=120,
+            )
+        except (OSError, subprocess.SubprocessError) as e:  # pragma: no cover
+            logger.warning("native contours build failed (%s); fallback", e)
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+            lib.eitx_trace_external_contours.restype = ctypes.c_int
+            lib.eitx_trace_external_contours.argtypes = [
+                ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
+            ]
+            _LIB = lib
+        except OSError as e:  # pragma: no cover
+            logger.warning("native contours load failed (%s); fallback", e)
         return _LIB
-    _LIB_TRIED = True
-    try:
-        so = build_shared(
-            os.path.abspath(_SRC), "libeitxcontours",
-            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"], timeout=120,
-        )
-    except (OSError, subprocess.SubprocessError) as e:  # pragma: no cover
-        logger.warning("native contours build failed (%s); fallback", e)
-        return None
-    try:
-        lib = ctypes.CDLL(so)
-        lib.eitx_trace_external_contours.restype = ctypes.c_int
-        lib.eitx_trace_external_contours.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
-        ]
-        _LIB = lib
-    except OSError as e:  # pragma: no cover
-        logger.warning("native contours load failed (%s); fallback", e)
-    return _LIB
 
 
 def _find_external_contours_native(

@@ -3,14 +3,20 @@
 Every entry point takes ``device`` and defaults to ``"cuda"``. Nothing
 falls back to the CPU when no card is present: the CPU is used only when
 the caller asks for it (the tests pass ``device="cpu"``).
+
+The port's float32 paths never run in TF32: importing this module (every
+entry point does) switches it off for the process, once. A setting that
+each block switched on and off would race between the service's
+concurrent requests.
 """
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def resolve_device(device="cuda") -> torch.device:
@@ -42,20 +48,3 @@ def to_device(x, device="cuda") -> torch.Tensor:
     if not arr.flags.writeable:  # a view of a file's bytes: torch wants its own
         arr = arr.copy()
     return torch.from_numpy(arr).to(resolve_device(device))
-
-
-@contextlib.contextmanager
-def full_f32():
-    """Full-precision float32 products and convolutions (TF32 off) for the
-    enclosed block; the previous settings come back on exit."""
-    prev = (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        assert not torch.backends.cuda.matmul.allow_tf32
-        assert not torch.backends.cudnn.allow_tf32
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = prev

@@ -5,6 +5,8 @@ synthetic_datasets_generator.py:322,342) and surfaces two numbers in its JSON
 answer. Here timing is a first-class module: nested spans collected into a
 dict. Every pipeline stage ends by copying its result to the host, which
 waits for the device, so a span covers the stage's device work.
+``device_trace`` is the counterpart of eitx.core.timing.device_trace on
+``torch.profiler``.
 """
 
 from __future__ import annotations
@@ -46,3 +48,23 @@ def timed(name: str, timer: Optional[Timer] = None):
     t = timer if timer is not None else Timer()
     with t.span(name):
         yield t
+
+
+@contextlib.contextmanager
+def device_trace(logdir: Optional[str] = None):
+    """``torch.profiler`` trace of the enclosed block (host and, where a
+    card is present, its kernels) written to ``logdir`` as a TensorBoard
+    trace; does nothing when ``logdir`` is None."""
+    if logdir is None:
+        yield
+        return
+    import torch
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir),
+    ):
+        yield

@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..core.config import ClassMap, SimulationConfig
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 from ..physio.materials import get_materials, interp_at_freq
 from .assembly import assemble_class_stiffness
 from .electrodes import place_electrodes_equal_spacing
@@ -70,10 +70,9 @@ def _admittance_voltages(nodes, tris, sigma_e, eps_r_e, freq_hz, el_pos,
     """(F, n_exc, n_meas) complex voltages of F stacked problems."""
     dev, dt = sigma_e.device, sigma_e.dtype
     B = _rhs_matrix(el_pos, ex_mat, n_nodes, dt, dev)
-    with full_f32():
-        ur, ui = _admittance_solve(
-            _values(nodes, dt, dev), _index(tris, dev), sigma_e, eps_r_e,
-            freq_hz, B.expand(sigma_e.shape[0], -1, -1), n_nodes, ref_node)
+    ur, ui = _admittance_solve(
+        _values(nodes, dt, dev), _index(tris, dev), sigma_e, eps_r_e,
+        freq_hz, B.expand(sigma_e.shape[0], -1, -1), n_nodes, ref_node)
     el = _index(el_pos, dev)
     meas = _index(meas_mat, dev)
     return torch.complex(_measure(ur[:, el, :], meas),

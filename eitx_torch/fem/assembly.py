@@ -8,33 +8,56 @@ per-class conductivity,
 so one grounded K_c per tissue class is assembled once per mesh and every
 breathing frame's system matrix is a (C,) x (C, N, N) contraction.
 
-The scatter-add is deterministic on CUDA: ``index_put_(accumulate=True)``
-runs under ``torch.use_deterministic_algorithms(True)``, which sorts the
-indices and sums each run of equal indices in a fixed order instead of
-racing atomics. Two runs therefore assemble bit-identical matrices, which
-the byte-equal ``.dat`` check relies on.
+The scatter-add is deterministic on every device without a process-wide
+flag: ``scatter_sum_fixed_order`` sorts the entries by their target (a
+stable sort), sums each run of equal targets by a segmented scan of fixed
+shape, and writes each run's total once. No atomics race and no host wait
+is needed, so two runs assemble bit-identical matrices (the byte-equal
+``.dat`` check relies on it) and concurrent requests need no lock around
+the assembly.
 """
 
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 
 
-@contextlib.contextmanager
-def deterministic_algorithms():
-    """Scoped ``torch.use_deterministic_algorithms(True)``."""
-    prev = torch.are_deterministic_algorithms_enabled()
-    torch.use_deterministic_algorithms(True)
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(prev)
+def scatter_sum_fixed_order(flat: torch.Tensor, vals: torch.Tensor,
+                            size: int) -> torch.Tensor:
+    """(C, size) with column f the sum of ``vals`` (C, E) over the entries
+    whose ``flat`` (E,) target is f, every sum taken in one fixed order.
+
+    The entries are sorted by target (stable), so each target's entries
+    form a run. A segmented inclusive scan doubles its reach each step
+    (Hillis-Steele: entry i adds entry i - d when both lie in one run), so
+    after ceil(log2 E) steps the last entry of a run holds the run's total;
+    that entry alone writes it, the others write to a discarded column.
+    Every step has the same shape whatever the mesh, so nothing waits for
+    the device."""
+    order = torch.sort(flat, stable=True).indices
+    f = flat[order]
+    v = vals[:, order]
+    e = f.shape[0]
+    pos = torch.arange(e, device=f.device)
+    start = torch.searchsorted(f, f)  # first position of each entry's run
+    d = 1
+    while d < e:
+        reach = (pos[d:] - d >= start[d:])[None]
+        v = torch.cat([v[:, :d], v[:, d:] + torch.where(reach, v[:, :-d], 0.0)],
+                      dim=1)
+        d *= 2
+    last = torch.ones(e, dtype=torch.bool, device=f.device)
+    last[:-1] = f[1:] != f[:-1]
+    dst = torch.where(last, f, size)
+    out = torch.zeros((vals.shape[0], size + 1), dtype=vals.dtype,
+                      device=vals.device)
+    out.index_copy_(1, dst, v)
+    return out[:, :size]
 
 
 def element_geometry(nodes: torch.Tensor, tris: torch.Tensor):
@@ -86,16 +109,8 @@ def assemble_class_stiffness(
     ii = tris[:, :, None].expand(-1, 3, 3)
     jj = tris[:, None, :].expand(-1, 3, 3)
     flat = (ii * n_nodes + jj).reshape(-1)
-    K = torch.zeros((n_cls, n_nodes * n_nodes), dtype=vals.dtype,
-                    device=vals.device)
-    cls_idx = torch.arange(n_cls, device=vals.device)[:, None].expand(
-        -1, flat.shape[0])
-    with deterministic_algorithms():
-        K.index_put_(
-            (cls_idx.reshape(-1), flat.repeat(n_cls)),
-            vals.reshape(-1),
-            accumulate=True,
-        )
+    K = scatter_sum_fixed_order(flat, vals.reshape(n_cls, -1),
+                                n_nodes * n_nodes)
     return K.reshape(n_cls, n_nodes, n_nodes)
 
 
@@ -192,7 +207,6 @@ class ClassStiffness:
 
     def system_matrices(self, sigma: torch.Tensor) -> torch.Tensor:
         """K(t) for per-class conductivities sigma (T, C) -> (T, N, N)."""
-        with full_f32():
-            K = torch.tensordot(sigma.to(self.k_class.dtype), self.k_class,
-                                dims=([1], [0]))
+        K = torch.tensordot(sigma.to(self.k_class.dtype), self.k_class,
+                            dims=([1], [0]))
         return K + torch.diag(self.diag_fix)[None]

@@ -28,7 +28,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core.device import full_f32
 from .assembly import ClassStiffness
 from .electrodes import _orient_ccw, boundary_loop
 from .solver import _index, _measure, _values
@@ -182,13 +181,12 @@ def forward_solve_cem(
     B = torch.zeros((dim, np.asarray(ex_mat).shape[0]), dtype=dt, device=dev)
     B[n:, :] = _values(_currents(ex_mat, system.n_el, current).T, dt, dev)
     B[dim - 1, :] = 0.0  # grounded electrode row
-    with full_f32():
-        K = torch.tensordot(_values(sigma, dt, dev), system.k_class,
-                            dims=([1], [0])) + system.fixed[None]
-        L = torch.linalg.cholesky(K)
-        U = torch.cholesky_solve(B.expand(K.shape[0], -1, -1), L)
-        U = U + torch.cholesky_solve(B - K @ U, L)
-        return _measure(U[:, n:, :], _index(meas_mat, dev))
+    K = torch.tensordot(_values(sigma, dt, dev), system.k_class,
+                        dims=([1], [0])) + system.fixed[None]
+    L = torch.linalg.cholesky(K)
+    U = torch.cholesky_solve(B.expand(K.shape[0], -1, -1), L)
+    U = U + torch.cholesky_solve(B - K @ U, L)
+    return _measure(U[:, n:, :], _index(meas_mat, dev))
 
 
 def spectral_cem_solver(

@@ -32,7 +32,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 from .assembly import element_geometry
 from .inverse import (
     _check_factored,
@@ -131,28 +131,26 @@ def _train_matrix(jac, cent, area, xs, ys, r_img, lam: float,
     float32 scalar: its square is formed in float32, as in the reference.
     """
     del npx  # the grid's size is that of xs and ys
-    with full_f32():
-        # equal-area targets: rescale each Jacobian column from "this
-        # element's area" to the median target area
-        a0 = _equal_area_median(area, m_real)
-        Y = jac * (a0 / area.clamp(min=1e-12))[None, :]  # (n_meas, M)
-        # desired images: compact quadratic bump at each target centroid
-        pix = _pixel_grid(xs, ys)  # (P^2, 2)
-        d2 = ((pix[:, None, :] - cent[None, :, :]) ** 2).sum(-1)
-        r2 = float(np.float32(r_img) * np.float32(r_img))
-        X = torch.clamp(1.0 - d2 / r2, min=0.0)  # (P^2, M)
-        L, info = _factor(Y, lam)
-        _check_factored(info, "GREIT train solve")
-        W = torch.cholesky_solve(Y, L)  # (n_meas, M)
-        return X @ W.T  # (P^2, n_meas)
+    # equal-area targets: rescale each Jacobian column from "this
+    # element's area" to the median target area
+    a0 = _equal_area_median(area, m_real)
+    Y = jac * (a0 / area.clamp(min=1e-12))[None, :]  # (n_meas, M)
+    # desired images: compact quadratic bump at each target centroid
+    pix = _pixel_grid(xs, ys)  # (P^2, 2)
+    d2 = ((pix[:, None, :] - cent[None, :, :]) ** 2).sum(-1)
+    r2 = float(np.float32(r_img) * np.float32(r_img))
+    X = torch.clamp(1.0 - d2 / r2, min=0.0)  # (P^2, M)
+    L, info = _factor(Y, lam)
+    _check_factored(info, "GREIT train solve")
+    W = torch.cholesky_solve(Y, L)  # (n_meas, M)
+    return X @ W.T  # (P^2, n_meas)
 
 
 def _apply(R, mask, dv) -> torch.Tensor:
-    with full_f32():
-        flat = dv.reshape(-1, R.shape[1])
-        img = flat @ R.T  # (T, P^2)
-        npx = mask.shape[0]
-        return img.reshape(*dv.shape[:-1], npx, npx) * mask
+    flat = dv.reshape(-1, R.shape[1])
+    img = flat @ R.T  # (T, P^2)
+    npx = mask.shape[0]
+    return img.reshape(*dv.shape[:-1], npx, npx) * mask
 
 
 @dataclass

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..core.config import ClassMap, SimulationConfig
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 from ..core.errors import SimulationError
 from ..physio.materials import get_materials, tissue_conductivities
 from .assembly import assemble_stiffness, element_geometry
@@ -87,37 +87,34 @@ def _difference_jacobian(
     tail [n_real:] as padding nodes: their isolated rows get a unit
     diagonal so K stays SPD.
     """
-    with full_f32():
-        K = _ground(assemble_stiffness(nodes, tris, sigma_e, n_nodes),
-                    ref_node)
-        if n_real is None:
-            n_real = n_nodes
-        pad = (torch.arange(n_nodes, device=K.device) >= n_real).to(K.dtype)
-        pad[ref_node] = 0.0
-        K = K + torch.diag(pad)
-        B_el = _electrode_rhs(el_pos, n_nodes, ref_node, K.dtype)
-        U_el = torch.cholesky_solve(B_el, torch.linalg.cholesky(K))
-        ke, _ = element_geometry(nodes, tris)  # unit conductivity
-        return _sensitivity(ke, tris, U_el, ex_mat, meas_mat)
+    K = _ground(assemble_stiffness(nodes, tris, sigma_e, n_nodes),
+                ref_node)
+    if n_real is None:
+        n_real = n_nodes
+    pad = (torch.arange(n_nodes, device=K.device) >= n_real).to(K.dtype)
+    pad[ref_node] = 0.0
+    K = K + torch.diag(pad)
+    B_el = _electrode_rhs(el_pos, n_nodes, ref_node, K.dtype)
+    U_el = torch.cholesky_solve(B_el, torch.linalg.cholesky(K))
+    ke, _ = element_geometry(nodes, tris)  # unit conductivity
+    return _sensitivity(ke, tris, U_el, ex_mat, meas_mat)
 
 
 def _factor(jac: torch.Tensor, lam: float):
     """Lower Cholesky factor of J J^T + lam * mean(diag(J J^T)) I and
     cuSOLVER's info (0: factored), without waiting for the device."""
-    with full_f32():
-        G = jac @ jac.T
-        reg = lam * torch.diagonal(G).mean()
-        G = G + reg * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
-        return torch.linalg.cholesky_ex(G)
+    G = jac @ jac.T
+    reg = lam * torch.diagonal(G).mean()
+    G = G + reg * torch.eye(G.shape[0], dtype=G.dtype, device=G.device)
+    return torch.linalg.cholesky_ex(G)
 
 
 def _reconstruct(jac: torch.Tensor, chol: torch.Tensor,
                  dv: torch.Tensor) -> torch.Tensor:
-    with full_f32():
-        flat = dv.reshape(-1, jac.shape[0])  # (T, n_meas_total)
-        w = torch.cholesky_solve(flat.T, chol)  # (n_meas_total, T)
-        ds = (jac.T @ w).T  # (T, M)
-        return ds.reshape(*dv.shape[:-1], jac.shape[1])
+    flat = dv.reshape(-1, jac.shape[0])  # (T, n_meas_total)
+    w = torch.cholesky_solve(flat.T, chol)  # (n_meas_total, T)
+    ds = (jac.T @ w).T  # (T, M)
+    return ds.reshape(*dv.shape[:-1], jac.shape[1])
 
 
 def _check_factored(info: torch.Tensor, what: str) -> None:
@@ -276,17 +273,16 @@ def _gauss_newton(nodes, tris, ke, sigma, B_el, el_pos, ex_mat, meas_mat,
     Returns (sigma (M,), squared residual per iteration (n_iter,),
     infos (2 * n_iter,))."""
     res, infos = [], []
-    with full_f32():
-        for _ in range(n_iter):
-            r, J, info_k = _fields_jacobian_residual(
-                nodes, tris, ke, sigma, B_el, el_pos, ex_mat, meas_mat,
-                v_meas, ref_node,
-            )
-            L, info_g = _factor(J, lam)
-            w = torch.cholesky_solve(r[:, None], L)[:, 0]
-            sigma = torch.clamp(sigma + J.T @ w, sigma_min, sigma_max)
-            res.append(torch.dot(r, r))
-            infos += [info_k, info_g]
+    for _ in range(n_iter):
+        r, J, info_k = _fields_jacobian_residual(
+            nodes, tris, ke, sigma, B_el, el_pos, ex_mat, meas_mat,
+            v_meas, ref_node,
+        )
+        L, info_g = _factor(J, lam)
+        w = torch.cholesky_solve(r[:, None], L)[:, 0]
+        sigma = torch.clamp(sigma + J.T @ w, sigma_min, sigma_max)
+        res.append(torch.dot(r, r))
+        infos += [info_k, info_g]
     return sigma, torch.stack(res), torch.stack(infos)
 
 
@@ -328,13 +324,12 @@ def gauss_newton_absolute(
     M = tris.shape[0]
     ke, _ = element_geometry(nodes_t, tris_t)
     B_el = _electrode_rhs(el, nodes.shape[0], ref_node, f32)
-    with full_f32():
-        U1, info1 = _electrode_fields(nodes_t, tris_t, ke.new_ones(M), B_el,
-                                      ref_node)
-        v1 = _voltages(U1, el, exm, mm)
-        # v(s*1) = v1 / s  =>  s* = <v1, v1> / <v_meas, v1>
-        s0 = torch.dot(v1, v1) / torch.dot(vm, v1).clamp(min=1e-12)
-        sigma0 = s0.clamp(*sigma_bounds).expand(M).clone()
+    U1, info1 = _electrode_fields(nodes_t, tris_t, ke.new_ones(M), B_el,
+                                  ref_node)
+    v1 = _voltages(U1, el, exm, mm)
+    # v(s*1) = v1 / s  =>  s* = <v1, v1> / <v_meas, v1>
+    s0 = torch.dot(v1, v1) / torch.dot(vm, v1).clamp(min=1e-12)
+    sigma0 = s0.clamp(*sigma_bounds).expand(M).clone()
     sigma, res, infos = _gauss_newton(
         nodes_t, tris_t, ke, sigma0, B_el, el, exm, mm, vm, lam,
         sigma_bounds[0], sigma_bounds[1], ref_node, n_iter,

@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 from .admittance import _admittance_solve
 from .protocol import abs_to_diff
 from .solver import _index, _values
@@ -154,13 +154,12 @@ def _sheffield_frames(nodes, tris, sigma_e, eps_r_e, freq_hz, W, current,
     ex = _index(sheffield_ex_mat(W.shape[0]), dev)
     # B[:, p] = I * (w_inj - w_gnd): uniform current density along the
     # electrode arc
-    with full_f32():
-        B = _values(current, dt, dev) * (W[ex[:, 0]] - W[ex[:, 1]]).T
-        u_re, _ = _admittance_solve(
-            _values(nodes, dt, dev), _index(tris, dev), sigma_e, eps_r_e,
-            _values(freq_hz, dt, dev).expand(T), B.expand(T, -1, -1),
-            n_nodes, ref_node)
-        return (W @ u_re).mT  # (T, n_proj, n_elec)
+    B = _values(current, dt, dev) * (W[ex[:, 0]] - W[ex[:, 1]]).T
+    u_re, _ = _admittance_solve(
+        _values(nodes, dt, dev), _index(tris, dev), sigma_e, eps_r_e,
+        _values(freq_hz, dt, dev).expand(T), B.expand(T, -1, -1),
+        n_nodes, ref_node)
+    return (W @ u_re).mT  # (T, n_proj, n_elec)
 
 
 def sheffield_monitoring(

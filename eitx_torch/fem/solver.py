@@ -16,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.device import full_f32, resolve_device
+from ..core.device import resolve_device
 from .assembly import ClassStiffness, assemble_stiffness
 
 # frames whose CG has not converged are looked for every this many
@@ -70,16 +70,15 @@ def forward_solve(
     EITForward.solve_eit equivalent for one conductivity distribution.
     """
     dev, dtype = resolve_device(device), torch.float32
-    with full_f32():
-        K = assemble_stiffness(_values(nodes, dtype, dev), _index(tris, dev),
-                               _values(cond, dtype, dev), n_nodes)
-        K[ref_node, :] = 0.0
-        K[:, ref_node] = 0.0
-        K[ref_node, ref_node] = 1.0
-        B = _rhs_matrix(el_pos, ex_mat, n_nodes, dtype, dev)
-        B[ref_node, :] = 0.0
-        U = torch.cholesky_solve(B, torch.linalg.cholesky(K))  # (N, n_exc)
-        return _measure(U[_index(el_pos, dev), :], _index(meas_mat, dev))
+    K = assemble_stiffness(_values(nodes, dtype, dev), _index(tris, dev),
+                           _values(cond, dtype, dev), n_nodes)
+    K[ref_node, :] = 0.0
+    K[:, ref_node] = 0.0
+    K[ref_node, ref_node] = 1.0
+    B = _rhs_matrix(el_pos, ex_mat, n_nodes, dtype, dev)
+    B[ref_node, :] = 0.0
+    U = torch.cholesky_solve(B, torch.linalg.cholesky(K))  # (N, n_exc)
+    return _measure(U[_index(el_pos, dev), :], _index(meas_mat, dev))
 
 
 def forward_solve_batched(
@@ -96,21 +95,20 @@ def forward_solve_batched(
     """
     dev, dt = cs.k_class.device, cs.k_class.dtype
     sigma = _values(sigma, dt, dev)
-    with full_f32():
-        # Voltages are 1/alpha-homogeneous in conductivity: solving with
-        # sigma/s and dividing the result by s keeps the Cholesky on a
-        # well-scaled matrix (better f32 conditioning across frames).
-        scale = sigma.mean(dim=1, keepdim=True)  # (T, 1)
-        K = cs.system_matrices(sigma / scale)  # ref node + padding nodes
-        B = _rhs_matrix(el_pos, ex_mat, cs.n_nodes, dt, dev)
-        B[cs.ref_node, :] = 0.0
-        L = torch.linalg.cholesky(K)
-        U = torch.cholesky_solve(B.expand(K.shape[0], -1, -1), L)
-        # one step of iterative refinement claws back ~an order of
-        # magnitude of f32 round-off for a product + triangular solve
-        U = U + torch.cholesky_solve(B - K @ U, L)
-        v = _measure(U[:, _index(el_pos, dev), :], _index(meas_mat, dev))
-        return v / scale[:, :, None]
+    # Voltages are 1/alpha-homogeneous in conductivity: solving with
+    # sigma/s and dividing the result by s keeps the Cholesky on a
+    # well-scaled matrix (better f32 conditioning across frames).
+    scale = sigma.mean(dim=1, keepdim=True)  # (T, 1)
+    K = cs.system_matrices(sigma / scale)  # ref node + padding nodes
+    B = _rhs_matrix(el_pos, ex_mat, cs.n_nodes, dt, dev)
+    B[cs.ref_node, :] = 0.0
+    L = torch.linalg.cholesky(K)
+    U = torch.cholesky_solve(B.expand(K.shape[0], -1, -1), L)
+    # one step of iterative refinement claws back ~an order of
+    # magnitude of f32 round-off for a product + triangular solve
+    U = U + torch.cholesky_solve(B - K @ U, L)
+    v = _measure(U[:, _index(el_pos, dev), :], _index(meas_mat, dev))
+    return v / scale[:, :, None]
 
 
 def forward_solve_cg(
@@ -133,12 +131,11 @@ def forward_solve_cg_info(
     dev, dt = cs.k_class.device, cs.k_class.dtype
     B = _rhs_matrix(el_pos, ex_mat, cs.n_nodes, dt, dev)
     B[cs.ref_node, :] = 0.0
-    with full_f32():
-        K = cs.system_matrices(_values(sigma, dt, dev))
-        diag = torch.diagonal(K, dim1=1, dim2=2).clamp(min=1e-30)  # (T, N)
-        U, iters, rs = _cg_block(K, B.expand(K.shape[0], -1, -1), diag,
-                                 tol, maxiter)
-        v = _measure(U[:, _index(el_pos, dev), :], _index(meas_mat, dev))
+    K = cs.system_matrices(_values(sigma, dt, dev))
+    diag = torch.diagonal(K, dim1=1, dim2=2).clamp(min=1e-30)  # (T, N)
+    U, iters, rs = _cg_block(K, B.expand(K.shape[0], -1, -1), diag,
+                             tol, maxiter)
+    v = _measure(U[:, _index(el_pos, dev), :], _index(meas_mat, dev))
     return v, iters, torch.sqrt(rs / (B * B).sum())
 
 

@@ -15,8 +15,8 @@ The setups are written once, for a stack of subjects: every stage is one
 triangular solves, ``eigh``), and a single subject is a stack of one.
 They run as cuSOLVER / cuBLAS library calls, as the JAX package leaves
 them to XLA, in full float32: the reference pins ``"highest"`` matmul
-precision (spectral.py:152,484), so TF32 is off around setup and solve
-(``core.device.full_f32``).
+precision (spectral.py:152,484), and the port runs no float32 path in
+TF32 (switched off once, when ``eitx_torch`` is imported).
 
 Compare voltages, never eigenvectors: the sign and order of an ``eigh``
 basis differ between libraries.
@@ -29,7 +29,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core.device import full_f32
 from .assembly import ClassStiffness
 from .solver import _index, _measure, _rhs_matrix, _values
 
@@ -108,13 +107,12 @@ class SpectralEITSolver:
         """Spectral factorization for any SPD pencil K(a) = K_base + dK*a,
         such as the complete electrode model's augmented system."""
         dev, dt = k_class.device, k_class.dtype
-        with full_f32():
-            K_base = _base_matrices(
-                k_class[None], fixed[None], _values(sigma_base, dt, dev),
-                lung_class, torch.tensor([alpha0], dtype=dt, device=dev))
-            lam, y0, z = _spectral_core(
-                K_base, k_class[lung_class][None], _values(rhs, dt, dev)[None],
-                _index(readout_rows, dev)[None])
+        K_base = _base_matrices(
+            k_class[None], fixed[None], _values(sigma_base, dt, dev),
+            lung_class, torch.tensor([alpha0], dtype=dt, device=dev))
+        lam, y0, z = _spectral_core(
+            K_base, k_class[lung_class][None], _values(rhs, dt, dev)[None],
+            _index(readout_rows, dev)[None])
         return cls(lam=lam[0], y0=y0[0], z=z[0], alpha0=float(alpha0),
                    meas_mat=_index(meas_mat, dev))
 
@@ -136,15 +134,14 @@ class SpectralEITSolver:
         k_stack, d_stack, ref, el_stack = _stack_subjects(cs_list, el_pos_list)
         dev, dt = k_stack.device, k_stack.dtype
         n = k_stack.shape[-1]
-        with full_f32():
-            K_base = _base_matrices(
-                k_stack, torch.diag_embed(d_stack), _values(sigma_base, dt, dev),
-                lung_class, _values(setup_alpha0s, dt, dev))
-            rhs = torch.stack([
-                _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
-            rhs[:, ref, :] = 0.0
-            lam, y0, z = _spectral_core(K_base, k_stack[:, lung_class], rhs,
-                                        el_stack)
+        K_base = _base_matrices(
+            k_stack, torch.diag_embed(d_stack), _values(sigma_base, dt, dev),
+            lung_class, _values(setup_alpha0s, dt, dev))
+        rhs = torch.stack([
+            _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
+        rhs[:, ref, :] = 0.0
+        lam, y0, z = _spectral_core(K_base, k_stack[:, lung_class], rhs,
+                                    el_stack)
         meas = _index(meas_mat, dev)
         return [cls(lam=lam[b], y0=y0[b], z=z[b], alpha0=float(alpha0s[b]),
                     meas_mat=meas) for b in range(len(cs_list))]
@@ -153,16 +150,15 @@ class SpectralEITSolver:
         """(T,) lung conductivities -> (T, n_exc, n_meas) voltages."""
         dt, dev = self.lam.dtype, self.lam.device
         alphas = _values(lung_alphas, dt, dev)
-        with full_f32():
-            denom = 1.0 + (alphas[:, None] - torch.tensor(
-                self.alpha0, dtype=dt, device=dev)) * self.lam[None, :]
-            # electrode readout and measurement differences folded into one
-            # frame-independent operator: the monitoring is ONE product
-            n_idx = self.meas_mat[:, :, 0]
-            m_idx = self.meas_mat[:, :, 1]
-            H = (self.z[n_idx] - self.z[m_idx]) * self.y0.T[:, None, :]
-            flat = (1.0 / denom) @ H.reshape(-1, H.shape[-1]).T
-            return flat.reshape(alphas.shape[0], *n_idx.shape)
+        denom = 1.0 + (alphas[:, None] - torch.tensor(
+            self.alpha0, dtype=dt, device=dev)) * self.lam[None, :]
+        # electrode readout and measurement differences folded into one
+        # frame-independent operator: the monitoring is ONE product
+        n_idx = self.meas_mat[:, :, 0]
+        m_idx = self.meas_mat[:, :, 1]
+        H = (self.z[n_idx] - self.z[m_idx]) * self.y0.T[:, None, :]
+        flat = (1.0 / denom) @ H.reshape(-1, H.shape[-1]).T
+        return flat.reshape(alphas.shape[0], *n_idx.shape)
 
 
 def _stack_subjects(cs_list, el_pos_list):
@@ -249,15 +245,14 @@ class LowRankSpectralSolver:
         dev, dt = k_class.device, k_class.dtype
         diag = torch.diagonal(k_class[lung_class]).cpu().numpy()
         idx, mask = _indices_from_diag(diag, k_class.shape[-1], rank_bucket)
-        with full_f32():
-            K_base = _base_matrices(
-                k_class[None], fixed[None], _values(sigma_base, dt, dev),
-                lung_class, torch.tensor([alpha0], dtype=dt, device=dev))
-            s2, u0, yq, zq = _lowrank_core(
-                K_base, k_class[lung_class][None], _index(idx, dev)[None],
-                _values(mask, dt, dev)[None],
-                _values(_selector(idx, mask, k_class.shape[-1]), dt, dev)[None],
-                _values(rhs, dt, dev)[None], _index(readout_rows, dev)[None])
+        K_base = _base_matrices(
+            k_class[None], fixed[None], _values(sigma_base, dt, dev),
+            lung_class, torch.tensor([alpha0], dtype=dt, device=dev))
+        s2, u0, yq, zq = _lowrank_core(
+            K_base, k_class[lung_class][None], _index(idx, dev)[None],
+            _values(mask, dt, dev)[None],
+            _values(_selector(idx, mask, k_class.shape[-1]), dt, dev)[None],
+            _values(rhs, dt, dev)[None], _index(readout_rows, dev)[None])
         return cls(s2=s2[0], u0=u0[0], yq=yq[0], zq=zq[0],
                    alpha0=float(alpha0), meas_mat=_index(meas_mat, dev))
 
@@ -288,16 +283,15 @@ class LowRankSpectralSolver:
         idxs = np.stack([np.pad(p[0], (0, r - p[0].shape[0])) for p in pairs])
         masks = np.stack([np.pad(p[1], (0, r - p[1].shape[0])) for p in pairs])
         sel = np.stack([_selector(i, m, n) for i, m in zip(idxs, masks)])
-        with full_f32():
-            K_base = _base_matrices(
-                k_stack, torch.diag_embed(d_stack), _values(sigma_base, dt, dev),
-                lung_class, _values(setup_alpha0s, dt, dev))
-            rhs = torch.stack([
-                _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
-            rhs[:, ref, :] = 0.0
-            s2, u0, yq, zq = _lowrank_core(
-                K_base, k_stack[:, lung_class], _index(idxs, dev),
-                _values(masks, dt, dev), _values(sel, dt, dev), rhs, el_stack)
+        K_base = _base_matrices(
+            k_stack, torch.diag_embed(d_stack), _values(sigma_base, dt, dev),
+            lung_class, _values(setup_alpha0s, dt, dev))
+        rhs = torch.stack([
+            _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
+        rhs[:, ref, :] = 0.0
+        s2, u0, yq, zq = _lowrank_core(
+            K_base, k_stack[:, lung_class], _index(idxs, dev),
+            _values(masks, dt, dev), _values(sel, dt, dev), rhs, el_stack)
         meas = _index(meas_mat, dev)
         return [cls(s2=s2[b], u0=u0[b], yq=yq[b], zq=zq[b],
                     alpha0=float(alpha0s[b]), meas_mat=meas)
@@ -327,16 +321,15 @@ def lowrank_solve_batch(solvers, lung_alphas):
             )
     s2 = torch.stack([s.s2 for s in solvers])
     dt, dev = s2.dtype, s2.device
-    with full_f32():
-        out = _lowrank_solve(
-            s2,
-            torch.stack([s.u0 for s in solvers]),
-            torch.stack([s.yq for s in solvers]),
-            torch.stack([s.zq for s in solvers]),
-            _values(lung_alphas, dt, dev),
-            torch.tensor([s.alpha0 for s in solvers], dtype=dt, device=dev),
-            m0,
-        )
+    out = _lowrank_solve(
+        s2,
+        torch.stack([s.u0 for s in solvers]),
+        torch.stack([s.yq for s in solvers]),
+        torch.stack([s.zq for s in solvers]),
+        _values(lung_alphas, dt, dev),
+        torch.tensor([s.alpha0 for s in solvers], dtype=dt, device=dev),
+        m0,
+    )
     return list(out.unbind(0))
 
 

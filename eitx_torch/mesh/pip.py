@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import threading
 from typing import Optional, Tuple
 
 import torch
@@ -38,10 +39,12 @@ _LIB: Optional[ctypes.CDLL] = None
 _LIB_PATH: Optional[str] = None
 
 # launches of the CUDA kernel (prologue and main kernel, one call) since
-# the count was last set to 0
+# the count was last set to 0; concurrent requests count under _COUNT_LOCK
 pip_launches = 0
 # launches of the prologue alone, through ``live_edges``
 live_edges_launches = 0
+_COUNT_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -53,18 +56,20 @@ def _nvcc() -> str:
 def load_kernel() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library."""
     global _LIB, _LIB_PATH
-    if _LIB is None:
-        so = build_shared(os.path.abspath(_SRC), "libeitxpip",
-                          [_nvcc(), *NVCC_FLAGS])
-        lib = ctypes.CDLL(so)
-        ptr, int_ = ctypes.c_void_p, ctypes.c_int
-        lib.eitx_pip.restype = int_
-        lib.eitx_pip.argtypes = [  # pts, polys, out, 3 x scratch, Q, C, P, stream
-            ptr, ptr, ptr, ptr, ptr, ptr, int_, int_, int_, ptr]
-        lib.eitx_pip_edges.restype = int_
-        lib.eitx_pip_edges.argtypes = [  # polys, 3 x scratch, C, P, stream
-            ptr, ptr, ptr, ptr, int_, int_, ptr]
-        _LIB, _LIB_PATH = lib, so
+    with _LOAD_LOCK:  # concurrent first callers wait for one build
+        if _LIB is None:
+            so = build_shared(os.path.abspath(_SRC), "libeitxpip",
+                              [_nvcc(), *NVCC_FLAGS])
+            lib = ctypes.CDLL(so)
+            ptr, int_ = ctypes.c_void_p, ctypes.c_int
+            lib.eitx_pip.restype = int_
+            # pts, polys, out, 3 x scratch, Q, C, P, stream
+            lib.eitx_pip.argtypes = [
+                ptr, ptr, ptr, ptr, ptr, ptr, int_, int_, int_, ptr]
+            lib.eitx_pip_edges.restype = int_
+            lib.eitx_pip_edges.argtypes = [  # polys, 3 x scratch, C, P, stream
+                ptr, ptr, ptr, ptr, int_, int_, ptr]
+            _LIB, _LIB_PATH = lib, so
     return _LIB
 
 
@@ -188,7 +193,8 @@ def live_edges_padded(polys: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         )
     if rc != 0:
         raise RuntimeError(f"eitx_pip_edges launch failed: CUDA error {rc}")
-    live_edges_launches += 1
+    with _COUNT_LOCK:
+        live_edges_launches += 1
     return records, offsets
 
 
@@ -234,5 +240,6 @@ def points_in_polys(points: torch.Tensor, polys: torch.Tensor) -> torch.Tensor:
         )
     if rc != 0:
         raise RuntimeError(f"eitx_pip launch failed: CUDA error {rc}")
-    pip_launches += 1
+    with _COUNT_LOCK:
+        pip_launches += 1
     return out.view(torch.bool)

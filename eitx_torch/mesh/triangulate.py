@@ -15,6 +15,7 @@ import ctypes
 import logging
 import os
 import subprocess
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
@@ -28,39 +29,41 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                     "native", "mesher.cpp")
 _LIB: Optional[ctypes.CDLL] = None
 _LIB_TRIED = False
+_LOAD_LOCK = threading.Lock()
 
 
 def _load_native() -> Optional[ctypes.CDLL]:
     global _LIB, _LIB_TRIED
-    if _LIB is not None or _LIB_TRIED:
+    with _LOAD_LOCK:  # concurrent first callers wait for one build
+        if _LIB is not None or _LIB_TRIED:
+            return _LIB
+        _LIB_TRIED = True
+        try:
+            so = build_shared(
+                os.path.abspath(_SRC), "libeitxmesher",
+                ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"], timeout=120,
+            )
+        except (OSError, subprocess.SubprocessError) as e:  # pragma: no cover
+            logger.warning("native mesher build failed (%s); using fallback", e)
+            return None
+        try:
+            lib = ctypes.CDLL(so)
+            lib.eitx_triangulate.restype = ctypes.c_int
+            lib.eitx_triangulate.argtypes = [
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_int,
+                ctypes.c_double,
+                ctypes.POINTER(ctypes.c_double),
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.c_int,
+                ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int),
+            ]
+            _LIB = lib
+        except OSError as e:  # pragma: no cover
+            logger.warning("native mesher load failed (%s); using fallback", e)
         return _LIB
-    _LIB_TRIED = True
-    try:
-        so = build_shared(
-            os.path.abspath(_SRC), "libeitxmesher",
-            ["g++", "-O3", "-fPIC", "-shared", "-std=c++17"], timeout=120,
-        )
-    except (OSError, subprocess.SubprocessError) as e:  # pragma: no cover
-        logger.warning("native mesher build failed (%s); using fallback", e)
-        return None
-    try:
-        lib = ctypes.CDLL(so)
-        lib.eitx_triangulate.restype = ctypes.c_int
-        lib.eitx_triangulate.argtypes = [
-            ctypes.POINTER(ctypes.c_double),
-            ctypes.c_int,
-            ctypes.c_double,
-            ctypes.POINTER(ctypes.c_double),
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.c_int,
-            ctypes.POINTER(ctypes.c_int),
-            ctypes.POINTER(ctypes.c_int),
-        ]
-        _LIB = lib
-    except OSError as e:  # pragma: no cover
-        logger.warning("native mesher load failed (%s); using fallback", e)
-    return _LIB
 
 
 def _triangulate_native(poly: np.ndarray, lc: float):

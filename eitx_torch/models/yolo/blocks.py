@@ -20,6 +20,35 @@ def autopad(k: int, d: int = 1) -> int:
     return k // 2
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-3) whose training mode is flax's
+    ``BatchNorm(momentum=0.97, epsilon=1e-3)`` (eitx/models/yolo/
+    blocks.py:48-52): the batch statistics are ``mean(x)`` and
+    ``max(mean(x^2) - mean(x)^2, 0)`` (flax's fast variance), the output
+    is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, and the running
+    statistics move by ``0.97 * running + 0.03 * batch`` with the *biased*
+    batch variance. torch's own update has momentum 0.1 and the unbiased
+    variance. Inference (eval mode) is ``nn.BatchNorm2d``'s."""
+
+    flax_momentum = 0.97
+
+    def __init__(self, num_features: int):
+        super().__init__(num_features, eps=1e-3)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean((0, 2, 3))
+        var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+        with torch.no_grad():
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var.detach(), alpha=1.0 - m)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
 class Conv(nn.Module):
     """Conv2d + BatchNorm (eps 1e-3) + SiLU (ultralytics Conv)."""
 
@@ -28,7 +57,7 @@ class Conv(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, d), dilation=d,
                               groups=g, bias=False)
-        self.bn = nn.BatchNorm2d(c2, eps=1e-3)
+        self.bn = BatchNorm2d(c2)
         self.act = nn.SiLU() if act else nn.Identity()
 
     def forward(self, x):

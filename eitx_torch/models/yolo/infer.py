@@ -31,8 +31,8 @@ differently in the JAX package, and the port follows each:
 
 from __future__ import annotations
 
-import contextlib
 import copy
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -40,7 +40,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ...core.device import full_f32, resolve_device, to_device
+from ...core.device import resolve_device, to_device
 from ...core.errors import ModelError
 from .checkpoint import flax_to_torch_state, load_state, read_msgpack_checkpoint
 from .model import YoloV11, yolov11_spec
@@ -82,6 +82,15 @@ def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
     return w.astype(f32)
 
 
+@functools.lru_cache(maxsize=64)
+def _axis_weights(n_in: int, n_out: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``_triangle_weights`` on ``device``, uploaded once per shape: an
+    upload from pageable host memory waits for the work queued before it,
+    so one per call would stall every training step."""
+    return torch.from_numpy(_triangle_weights(n_in, n_out)).to(device, dtype)
+
+
 def _resize_bilinear(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     """NCHW bilinear resize as two products with per-axis weight matrices.
     ``F.interpolate`` computes the same function but rounds its sample
@@ -89,8 +98,8 @@ def _resize_bilinear(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     shrunk 700-pixel axis; the letterbox has to agree with the reference
     more closely than that."""
     h, w = x.shape[-2:]
-    wh = torch.from_numpy(_triangle_weights(h, nh)).to(x.device, x.dtype)
-    ww = torch.from_numpy(_triangle_weights(w, nw)).to(x.device, x.dtype)
+    wh = _axis_weights(h, nh, x.device, x.dtype)
+    ww = _axis_weights(w, nw, x.device, x.dtype)
     return torch.einsum("ph,bchw,qw->bcpq", wh, x, ww)
 
 
@@ -170,12 +179,7 @@ class YoloRunner:
     ):
         self.device = resolve_device(device)
         state = None
-        if weights:
-            if weights.endswith(".pt"):
-                raise ModelError(
-                    f"{weights}: ultralytics .pt checkpoints are not read by "
-                    "the port (ROADMAP, queue 1: training, eval, scripts)"
-                )
+        if weights and not weights.endswith(".pt"):
             # an eitx checkpoint records its own architecture: adopt its
             # size variant and proto stride, refuse a class-count mismatch
             meta, params, batch_stats = read_msgpack_checkpoint(weights)
@@ -211,6 +215,12 @@ class YoloRunner:
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(seed)
             model = YoloV11(self.spec)
+        if weights and weights.endswith(".pt"):
+            # an ultralytics archive: the ultralytics names are this
+            # package's module names
+            from .convert import convert_ultralytics_checkpoint
+
+            state = convert_ultralytics_checkpoint(weights, model)
         if state is not None:
             load_state(model, state)
         # bf16 inference casts weights AND batch statistics
@@ -278,17 +288,13 @@ class YoloRunner:
             if pad:
                 arr = np.concatenate([arr, np.repeat(arr[-1:], pad, axis=0)])
         out = np.empty((b, h, w), np.int32)
-        # float32 runs keep convolutions and products out of TF32
-        precision = (full_f32() if self.compute_dtype == torch.float32
-                     else contextlib.nullcontext())
-        with precision:
-            for k in range(0, arr.shape[0], chunk):
-                x = torch.from_numpy(np.ascontiguousarray(arr[k:k + chunk]))
-                coarse = self._segment_labels_device(
-                    x.to(self.device), compose_full).cpu().numpy()
-                n = min(coarse.shape[0], b - k)
-                self._upsample_labels_into(
-                    out[k:k + n], coarse[:n], q=1 if compose_full else 4)
+        for k in range(0, arr.shape[0], chunk):
+            x = torch.from_numpy(np.ascontiguousarray(arr[k:k + chunk]))
+            coarse = self._segment_labels_device(
+                x.to(self.device), compose_full).cpu().numpy()
+            n = min(coarse.shape[0], b - k)
+            self._upsample_labels_into(
+                out[k:k + n], coarse[:n], q=1 if compose_full else 4)
         return out
 
     def _upsample_labels_into(
@@ -330,9 +336,8 @@ class YoloRunner:
     def detect(self, images: np.ndarray) -> Detections:
         """uint8 (B, H, W[, 3]) -> Detections in ORIGINAL image coords."""
         x, scale, pad_x, pad_y = _prep_batch(images, self.imgsz, self.device)
-        with full_f32():
-            det = postprocess_detect(self._float32_network()(x), self.conf,
-                                     self.iou, self.max_det)
+        det = postprocess_detect(self._float32_network()(x), self.conf,
+                                 self.iou, self.max_det)
         return self._detections_to_image(det, scale, pad_x, pad_y)
 
     @torch.inference_mode()
@@ -342,10 +347,9 @@ class YoloRunner:
         arr = np.asarray(images)
         h, w = arr.shape[1], arr.shape[2]
         x, scale, pad_x, pad_y = _prep_batch(arr, self.imgsz, self.device)
-        with full_f32():
-            det, masks = postprocess_segment(
-                self._float32_network()(x), (self.imgsz, self.imgsz),
-                self.conf, self.iou, self.max_det)
+        det, masks = postprocess_segment(
+            self._float32_network()(x), (self.imgsz, self.imgsz),
+            self.conf, self.iou, self.max_det)
         nh, nw = int(round(h * scale)), int(round(w * scale))
         m = masks[:, :, pad_y:pad_y + nh, pad_x:pad_x + nw]
         if (nh, nw) != (h, w):

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import logging
 import os
+import threading
 from datetime import datetime
 from typing import List, Optional, Tuple
 
@@ -116,6 +117,8 @@ class Pipeline:
         )
         self.seg_512 = self._tissue_segmenter(512)
         self._seg_256: Optional[TissueSegmenter] = None
+        # concurrent requests (the HTTP service) build the 256 model once
+        self._seg_256_lock = threading.Lock()
 
     def _tissue_segmenter(self, imgsz: int) -> TissueSegmenter:
         m = self.config.model
@@ -133,8 +136,9 @@ class Pipeline:
     # --- segmentation model selection (get_axial_slice_size parity) -----
     def _segmenter_for(self, image: np.ndarray) -> TissueSegmenter:
         if image.shape[0] == 256:
-            if self._seg_256 is None:
-                self._seg_256 = self._tissue_segmenter(256)
+            with self._seg_256_lock:
+                if self._seg_256 is None:
+                    self._seg_256 = self._tissue_segmenter(256)
             return self._seg_256
         return self.seg_512
 

@@ -8,14 +8,13 @@ app, main_kt_service.py:33-142): POST /uploadDicomSequence,
 GET /health and /ui. Error mapping: bad upload -> 400, processing error
 -> 500 with detail. Implemented on the stdlib ThreadingHTTPServer.
 
-One departure: calls into the pipeline and ``create_mesh`` run one at a
-time (a lock per server); /health and /ui do not wait for them. The
-port's FEM flips two process-wide torch flags around its work
-(``core.device.full_f32`` and ``fem.assembly.deterministic_algorithms``):
-a request leaving its scope could switch deterministic mode off while
-another request's stiffness scatter runs, and that request's ``.dat``
-would no longer be byte-reproducible. The reference runs requests
-concurrently; JAX has no such process-wide state.
+Requests run concurrently, as the reference's do: the pipeline switches
+no process-wide torch setting per request (TF32 is switched off once,
+when ``eitx_torch`` is imported; the stiffness scatter is deterministic without
+a flag, ``fem.assembly.scatter_sum_fixed_order``), so a request's
+``.dat`` is the same bytes whatever runs beside it. The listen backlog is
+deeper than socketserver's 5, so a burst of clients is queued instead of
+dropped.
 """
 
 from __future__ import annotations
@@ -219,22 +218,17 @@ def _create_mesh_route(body: BytesIO, device) -> dict:
     }
 
 
-def _one_at_a_time(route: Callable[[BytesIO], dict],
-                   lock: threading.Lock) -> Callable[[BytesIO], dict]:
-    """``route`` under ``lock``: the upload is already read when the
-    request waits, and only the processing is serialised."""
-
-    def serialised(body: BytesIO) -> dict:
-        with lock:
-            return route(body)
-
-    return serialised
+class _Server(ThreadingHTTPServer):
+    # socketserver listens with a backlog of 5: a burst of more clients
+    # than that, with the host busy, overflows the accept queue, and a
+    # client whose connection was not queued sees it reset
+    request_queue_size = 128
 
 
 class EitxHTTPServer:
-    """Wraps ThreadingHTTPServer with the pipeline routes. The routes run
-    one at a time (see the module docstring); ``/createMesh`` classifies
-    on the pipeline's device."""
+    """Wraps ThreadingHTTPServer with the pipeline routes, which run
+    concurrently (see the module docstring); ``/createMesh`` classifies on
+    the pipeline's device."""
 
     def __init__(self, pipeline, host: str = "0.0.0.0", port: int = 5001):
         handler = type("BoundHandler", (_Handler,), {})
@@ -247,12 +241,8 @@ class EitxHTTPServer:
             "/createMesh": lambda body: _create_mesh_route(body,
                                                            pipeline.device),
         }
-        # the pipeline's FEM flips process-wide torch flags: one request
-        # in the pipeline at a time
-        self.lock = threading.Lock()
-        handler.routes = {path: _one_at_a_time(route, self.lock)
-                          for path, route in routes.items()}
-        self.httpd = ThreadingHTTPServer((host, port), handler)
+        handler.routes = routes
+        self.httpd = _Server((host, port), handler)
         self._thread: Optional[threading.Thread] = None
 
     @property

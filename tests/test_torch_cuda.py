@@ -409,8 +409,9 @@ def test_gauss_newton_loop_never_waits_for_the_card(dev):
 
 def test_concurrent_requests_on_card_write_equal_dat(dev, tmp_path):
     """Three concurrent HTTP image requests and a direct call on the card
-    (3 frames): the server's lock keeps the scatter deterministic, so the
-    four .dat files are byte-equal."""
+    (3 frames): the requests run at once (no lock) and the scatter is
+    deterministic without a process-wide flag, so the four .dat files are
+    byte-equal."""
     import json
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
@@ -475,3 +476,100 @@ def test_stiffness_assembly_never_waits_for_the_card(dev):
         got = assemble_stiffness(*args)
     assert waits == []
     assert torch.equal(got, want)
+
+
+def _tagged_store(n=4, imgsz=32):
+    data = {
+        "images": np.zeros((n, imgsz, imgsz, 3), np.uint8),
+        "boxes": np.zeros((n, 2, 4), np.float32),
+        "classes": np.zeros((n, 2), np.int32),
+        "masks": np.zeros((n, 2, imgsz // 2, imgsz // 2), np.uint8),
+        "valid": np.zeros((n, 2), bool),
+    }
+    for i in range(n):
+        data["images"][i] = i
+        data["masks"][i] = i
+        data["boxes"][i, 0] = [i + 1.0, i + 2.0, i + 10.0, i + 20.0]
+        data["valid"][i, 0] = True
+    return data
+
+
+def test_device_batches_on_card(dev):
+    """The stream lives on the card, keeps the store's dtypes, flips
+    boxes and masks with the image, and one seed gives one stream."""
+    from eitx_torch.train.data import device_batches
+
+    data = _tagged_store()
+    it = device_batches(data, 3, seed=2, flip_h_prob=1.0, flip_v_prob=0.0,
+                        device=dev)
+    b = next(it)
+    for k, v in b.items():
+        assert v.device.type == "cuda" and v.dtype == torch.from_numpy(
+            data[k]).dtype, k
+    b = {k: v.cpu().numpy() for k, v in b.items()}
+    for s in range(3):
+        i = int(b["images"][s, 0, 0, 0])
+        assert int(b["masks"][s, 0, 0, 0]) == i
+        np.testing.assert_allclose(
+            b["boxes"][s, 0], [32 - (i + 10.0), i + 2.0, 32 - (i + 1.0),
+                               i + 20.0])
+    runs = [[{k: v.cpu() for k, v in x.items()} for x, _ in zip(
+        device_batches(data, 3, seed=5, mosaic_prob=0.5, mosaic_budget=6,
+                       device=dev), range(3))] for _ in range(2)]
+    for x, y in zip(*runs):
+        assert all(torch.equal(x[k], y[k]) for k in x)
+
+
+def _train_batch():
+    from eitx_torch.train.data import synthetic_ct_batch
+
+    return synthetic_ct_batch(2, 64, 4, seed=1)
+
+
+TRAIN_CFG = dict(imgsz=64, variant="n", max_instances=4, warmup_steps=0,
+                 total_steps=10, lr=5e-3, assigner="center")
+
+
+def test_train_step_on_card_equals_cpu(dev):
+    """One optimizer step of the YOLOv11-n segmenter at 64^2, batch 2,
+    from the same initial parameters: the loss components within rtol
+    1e-4 and the BatchNorm statistics within 1e-4 of their scale (float32
+    convolutions in cuDNN's orders against oneDNN's, TF32 off)."""
+    from eitx_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(**TRAIN_CFG)
+    card, cpu = Trainer(cfg, device=dev), Trainer(cfg, device="cpu")
+    m_card, m_cpu = card.train_step(_train_batch()), cpu.train_step(
+        _train_batch())
+    for k, v in m_cpu.items():
+        assert abs(m_card[k] - v) <= 1e-4 * abs(v), (k, m_card[k], v)
+    assert torch.backends.cudnn.allow_tf32 is False
+    scale = max(float(t.abs().max()) for t in cpu.state.batch_stats.values())
+    err = max(float((card.state.batch_stats[n].cpu() - t).abs().max())
+              for n, t in cpu.state.batch_stats.items())
+    assert err <= 1e-4 * scale
+
+
+def test_train_checkpoint_round_trip_on_card(dev, tmp_path):
+    """A .train file written on the card loads into a fresh trainer on the
+    card equal on every tensor, and its next step is the continuing
+    run's."""
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.checkpoint import load_checkpoint, save_checkpoint
+
+    cfg = TrainConfig(**TRAIN_CFG)
+    tr = Trainer(cfg, device=dev)
+    for _ in range(2):
+        tr.train_step(_train_batch())
+    path = str(tmp_path / "card.train")
+    save_checkpoint(path, tr.state)
+    fresh = Trainer(cfg, seed=3, device=dev)
+    fresh.state = load_checkpoint(path, fresh.state)
+    for n, p in tr.state.params.items():
+        assert torch.equal(fresh.state.params[n], p.detach())
+        assert torch.equal(fresh.opt_state.nu[n], tr.opt_state.nu[n])
+    for n, t in tr.state.batch_stats.items():
+        assert torch.equal(fresh.state.batch_stats[n], t)
+    assert (fresh.state.step, fresh.opt_state.count) == (2, 2)
+    a, b = fresh.train_step(_train_batch()), tr.train_step(_train_batch())
+    assert all(abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) for k in b)

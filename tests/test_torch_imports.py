@@ -30,6 +30,14 @@ MODULES = [
     "eitx_torch.eval",
     "eitx_torch.core.toml_config",
     "eitx_torch.core.log",
+    "eitx_torch.train",
+    "eitx_torch.train.phantoms",
+    "eitx_torch.train.checkpoint",
+    "eitx_torch.scripts.pseudo_label",
+    "eitx_torch.scripts.train_tissue",
+    "eitx_torch.scripts.train_ribs",
+    "eitx_torch.models.yolo.convert",
+    "eitx_torch.models.yolo.ptread",
 ]
 
 
@@ -79,3 +87,31 @@ def test_default_device_is_cuda_and_never_falls_back():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             resolve_device()
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_exports_match_eitx():
+    """The names eitx's packages export where the port has them: the
+    pipeline's batch factory, the timing module's device trace, the
+    training package."""
+    import eitx_torch.pipeline as pipeline
+    import eitx_torch.train as train
+    from eitx_torch.core import timing
+
+    for name in ("Pipeline", "build_answer", "generate_batch",
+                 "load_manifest"):
+        assert name in pipeline.__all__ and hasattr(pipeline, name), name
+    for name in ("TrainConfig", "Trainer", "TrainState", "device_batches",
+                 "synthetic_ct_batch"):
+        assert name in train.__all__ and hasattr(train, name), name
+    assert callable(timing.device_trace)
+
+
+def test_device_trace_is_a_noop_without_logdir(tmp_path):
+    from eitx_torch.core.timing import device_trace
+
+    with device_trace(None):
+        x = torch.ones(3).sum()
+    assert float(x) == 3.0
+    with device_trace(str(tmp_path / "trace")):
+        torch.ones(4).sum()
+    assert os.listdir(tmp_path / "trace")

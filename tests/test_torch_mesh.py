@@ -3,13 +3,16 @@ real-slice goldens (tests/test_realfixture.py)."""
 
 import collections
 import os
+import threading
+import time
 
 import numpy as np
 import pytest
 
 from eitx.mesh import create_mesh as eitx_create_mesh
 from eitx.mesh.classify import classify_triangles as eitx_classify
-from eitx_torch.mesh import create_mesh
+from eitx_torch.contours import trace
+from eitx_torch.mesh import create_mesh, triangulate
 from eitx_torch.mesh.classify import classify_triangles
 from torch_bounds import bounded
 
@@ -95,3 +98,59 @@ def test_boundary_touch_rule_identical_to_eitx():
     got = classify_triangles(nodes, tris, contours, device="cpu", **kw)
     assert (got == 4).sum() > 0
     assert np.array_equal(got, ref)
+
+
+def _mesh_first(mod):
+    th = np.linspace(0, 2 * np.pi, 64, endpoint=False)
+    poly = np.stack([100 + 60 * np.cos(th), 100 + 40 * np.sin(th)], 1)
+    return mod.triangulate_polygon(poly, 7.0)
+
+
+def _trace_first(mod):
+    yy, xx = np.mgrid[:96, :96]
+    mask = ((yy - 40) ** 2 + (xx - 50) ** 2 < 30 ** 2).astype(np.uint8)
+    mask[70:90, 10:30] = 1
+    return mod.find_external_contours(mask, 1)
+
+
+@pytest.mark.parametrize("mod,call", [(triangulate, _mesh_first),
+                                      (trace, _trace_first)],
+                         ids=["mesher", "contours"])
+def test_concurrent_first_calls_wait_for_the_native_build(mod, call,
+                                                          monkeypatch):
+    """Two threads make the first call into a native library together
+    while its build takes a while (a cold server's first requests): both
+    wait for the one build and answer as a warm call does; neither runs
+    the numpy/scipy fallback (whose mesh differs) meanwhile."""
+    want = call(mod)
+    assert mod._load_native() is not None
+    real_build = mod.build_shared
+    builds = []
+
+    def slow_build(*args, **kw):
+        builds.append(args[1])
+        time.sleep(0.3)
+        return real_build(*args, **kw)
+
+    monkeypatch.setattr(mod, "build_shared", slow_build)
+    monkeypatch.setattr(mod, "_LIB", None)
+    monkeypatch.setattr(mod, "_LIB_TRIED", False)
+    start = threading.Barrier(2)
+    libs, outs = [None, None], [None, None]
+
+    def first(i):
+        start.wait()
+        libs[i] = mod._load_native()
+        outs[i] = call(mod)
+
+    threads = [threading.Thread(target=first, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert len(builds) == 1
+    assert libs[0] is not None and libs[0] is libs[1] is mod._LIB
+    for out in outs:
+        assert len(out) == len(want)
+        for a, b in zip(out, want):
+            np.testing.assert_array_equal(a, b)

@@ -1,7 +1,7 @@
 """The port's HTTP service against eitx's: the routes, error mapping and
 pages of tests/test_serve.py on a stub pipeline, the streaming multipart
-parser byte for byte, one request through the real CPU pipeline, and the
-lock that lets one request into the pipeline at a time."""
+parser byte for byte, two concurrent requests through the real CPU
+pipeline, and a burst of concurrent requests inside the pipeline at once."""
 
 import io
 import json
@@ -26,8 +26,10 @@ from eitx_torch.core.config import (
     PipelineConfig,
     SimulationConfig,
 )
+from eitx_torch.contours import trace
 from eitx_torch.core.errors import IngestError
 from eitx_torch.io import to_png_bytes
+from eitx_torch.mesh import triangulate
 from eitx_torch.pipeline import Pipeline
 from eitx_torch.serve import EitxHTTPServer, make_server
 from eitx_torch.serve.client import upload, zip_files_in_memory
@@ -46,7 +48,7 @@ class StubPipeline:
 
     device = torch.device("cpu")
 
-    def __init__(self, hold: float = 0.0):
+    def __init__(self, hold: float = 0.0, together: int = 0):
         self.calls = []
         self.active = self.most_active = 0
         self._count = threading.Lock()
@@ -54,14 +56,21 @@ class StubPipeline:
         self.gate = threading.Event()  # cleared: a request waits inside
         self.gate.set()
         self.entered = threading.Event()
+        # the first ``together`` requests wait inside until all of them are
+        # in: served one at a time, they would break the barrier
+        self.barrier = threading.Barrier(together) if together else None
 
     def _ok(self, name, blob):
         with self._count:
             self.active += 1
             self.most_active = max(self.most_active, self.active)
+            first = len(self.calls) < (self.barrier.parties
+                                        if self.barrier else 0)
+            self.calls.append(name)
         self.entered.set()
         try:
-            self.calls.append(name)
+            if first:
+                self.barrier.wait(timeout=30)
             self.gate.wait(timeout=30)
             data = blob.read()
             if self.hold:
@@ -243,9 +252,11 @@ def test_multipart_parser_rejects_as_eitx_does(body, ctype):
 
 def test_concurrent_requests_are_answered_one_at_a_time():
     """More client threads than cores, a short switch interval: every
-    request is answered, never two inside the pipeline at once, and
-    /health answers while a request holds the pipeline."""
-    stub = StubPipeline(hold=0.005)
+    request is answered with its own bytes, four of them are inside the
+    pipeline at once (the service lets requests run concurrently, as
+    eitx's does; the test's name is older than that), and /health answers
+    while a request holds the pipeline."""
+    stub = StubPipeline(hold=0.005, together=4)
     srv = EitxHTTPServer(stub, host="127.0.0.1", port=0)
     srv.start_background()
     interval = sys.getswitchinterval()
@@ -257,7 +268,10 @@ def test_concurrent_requests_are_answered_one_at_a_time():
                        for _ in range(4) for path, _ in MODES]
             answers = [f.result(timeout=60) for f in futures]
         assert [code for code, _ in answers] == [200] * 20
-        assert len(stub.calls) == 20 and stub.most_active == 1
+        assert [ans["bytes"] for _, ans in answers] == [len(body)] * 20
+        assert sorted(ans["mode"] for _, ans in answers) == sorted(
+            mode for _ in range(4) for _, mode in MODES)
+        assert len(stub.calls) == 20 and stub.most_active >= 4
         stub.gate.clear()  # the next request waits inside the pipeline
         stub.entered.clear()
         with ThreadPoolExecutor(max_workers=1) as pool:
@@ -283,10 +297,14 @@ def test_make_server_builds_the_pipeline_on_the_device(tmp_path):
             make_server(host="127.0.0.1", port=0)
 
 
-def test_real_request_dat_equals_direct_call(tmp_path):
-    """One request through HTTP to the real CPU pipeline (trained 256
-    checkpoint, one view, 3 frames): the .dat is byte-equal to a direct
-    call's."""
+def test_real_request_dat_equals_direct_call(tmp_path, monkeypatch):
+    """Two concurrent requests through HTTP to the real CPU pipeline
+    (trained 256 checkpoint, one view, 3 frames), the first to load the
+    native mesher and contour tracer, as on a cold server: each .dat is
+    byte-equal to a direct call's."""
+    for mod in (triangulate, trace):
+        monkeypatch.setattr(mod, "_LIB", None)
+        monkeypatch.setattr(mod, "_LIB_TRIED", False)
     b = phantom_batch(1, 256, 12, np.random.default_rng(42))
     img = (b["images"][0, ..., 0] * 255).astype(np.uint8)
     pipe = Pipeline(PipelineConfig(
@@ -297,19 +315,24 @@ def test_real_request_dat_equals_direct_call(tmp_path):
     srv.start_background()
     try:
         zipped = zip_files_in_memory([("slice.png", to_png_bytes(img))])
-        code, ans = _post(srv.port, "/uploadImageAxialSlice",
-                          _multipart(zipped),
-                          "multipart/form-data; boundary=xyzBOUNDARYxyz")
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            futures = [pool.submit(
+                _post, srv.port, "/uploadImageAxialSlice", _multipart(zipped),
+                "multipart/form-data; boundary=xyzBOUNDARYxyz")
+                for _ in range(2)]
+            answers = [f.result(timeout=300) for f in futures]
         with pytest.raises(urllib.error.HTTPError) as bad:
             upload(f"http://127.0.0.1:{srv.port}", "jpg_png", b"not a zip")
     finally:
         srv.shutdown()
-    assert code == 200 and ans["status"] == "success", ans
+    for code, ans in answers:
+        assert code == 200 and ans["status"] == "success", ans
     assert bad.value.code == 400
     direct = pipe.run_jpg_png(img)
-    assert ans["saved_file_name"] != direct["saved_file_name"]
-    with open(ans["saved_file_name"], "rb") as a, \
-            open(direct["saved_file_name"], "rb") as d:
-        served = a.read()
-        assert served == d.read()
-    assert len(served.splitlines()) == 3 * 12
+    with open(direct["saved_file_name"], "rb") as d:
+        want = d.read()
+    assert len(want.splitlines()) == 3 * 12
+    for _, ans in answers:
+        assert ans["saved_file_name"] != direct["saved_file_name"]
+        with open(ans["saved_file_name"], "rb") as a:
+            assert a.read() == want

@@ -27,7 +27,6 @@ sys.path.insert(0, ROOT)
 
 import eitx_torch.fem.inverse as inverse  # noqa: E402
 from eitx_torch.core.config import SimulationConfig  # noqa: E402
-from eitx_torch.core.device import full_f32  # noqa: E402
 from eitx_torch.fem import simulate_eit_monitoring  # noqa: E402
 from eitx_torch.fem.assembly import (  # noqa: E402
     assemble_stiffness,
@@ -45,16 +44,15 @@ def rel_to_max(got, ref) -> float:
 def fields(nodes, tris, sigma, el, n, refine=False, factor_dtype=None):
     """Electrode fields U (N, 16) as _difference_jacobian solves them, with
     the factorization in ``factor_dtype`` and an optional refinement."""
-    with full_f32():
-        K = inverse._ground(assemble_stiffness(nodes, tris, sigma, n), 0)
-        B = inverse._electrode_rhs(el, n, 0, K.dtype)
-        Kf = K.to(factor_dtype or K.dtype)
-        L = torch.linalg.cholesky(Kf)
-        U = torch.cholesky_solve(B.to(Kf.dtype), L).to(K.dtype)
-        if refine:
-            U = U + torch.cholesky_solve((B - K @ U).to(Kf.dtype),
-                                         L).to(K.dtype)
-        return U
+    K = inverse._ground(assemble_stiffness(nodes, tris, sigma, n), 0)
+    B = inverse._electrode_rhs(el, n, 0, K.dtype)
+    Kf = K.to(factor_dtype or K.dtype)
+    L = torch.linalg.cholesky(Kf)
+    U = torch.cholesky_solve(B.to(Kf.dtype), L).to(K.dtype)
+    if refine:
+        U = U + torch.cholesky_solve((B - K @ U).to(Kf.dtype),
+                                     L).to(K.dtype)
+    return U
 
 
 def main() -> int:
