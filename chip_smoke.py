@@ -23,7 +23,10 @@ its plain PyTorch version:
   - the HTTP service over the serving ``Pipeline``, and the pixel-level
     eval harness;
   - training: the YOLOv11-n segmenter at 512^2 and the rib detector at
-    640^2 through ``Trainer``, ``device_batches`` and ``fit``.
+    640^2 through ``Trainer``, ``device_batches`` and ``fit``;
+  - the sharded paths of ``eitx_torch.parallel`` on a world of one card
+    (NCCL): ``Trainer(mesh=...)``, sharded monitoring, segmentation and
+    the factory's group solve; then the profiling and dataset scripts.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -98,6 +101,27 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             .train round trip that continues as the run it came from; the
             deployment file labelling the 512^2 phantom; the rib detector
             at 640 (batch 4, 16 rib phantoms), 10 timed steps
+  parallel  eitx_torch.parallel on a world of one card (NCCL, joined
+            through a FileStore): Trainer on a (data, model) = (1, 1)
+            mesh against the meshless Trainer from one init on one batch
+            stream (3 steps: losses at the train phase's bounds, batch
+            statistics after the first; 5 more timed by CUDA events: ms
+            per step, peak memory); sharded_eit_monitoring of the serving
+            schedule's frames 12 times over (1200, as the .dat's rows) on
+            an lc-7 thorax equal to forward_solve_batched;
+            sharded_segment_labels of 16 flips and shifts of the phantom
+            (trained 512 checkpoint, serving settings) against
+            segment_labels; the factory's nine thorax subjects meshed on
+            the card, their low-rank solvers built per node bucket and
+            sharded_group_solve: every .dat (1200 x 208) byte-equal to
+            the subject's own solve. At a world of one a rank's block is
+            the whole run, so the blocks of a world of 4 are also
+            computed one after another and held to the same results
+            (monitoring: time and peak memory of each block)
+  scripts   profile_seg (512, batch 16, 3 repeats), profile_setup (batch
+            8, 3 repeats), eval_ood_fixture at 512 with one seed on the
+            trained checkpoint (test_ood_fixture.py's ratchets),
+            build_datasets frontal on the series zip (512 images)
 Every phase prints its seconds. Then the kernels line, the card's name
 and power limit, and the result line. Imports nothing of JAX or of the
 JAX package.
@@ -1698,6 +1722,17 @@ def phase_serve(dev, image, series, want_number):
     return launches
 
 
+VARIANT_SHIFTS = [(0, 0), (6, 0), (0, -9), (-5, 4), (11, 7), (-8, -12),
+                  (3, 15), (-14, 2)]
+
+
+def _variant(a, shift: int, flip: int) -> np.ndarray:
+    """``a`` flipped (bit 0: rows, bit 1: columns) and rolled by shift
+    ``shift`` of VARIANT_SHIFTS."""
+    axes = [ax for ax, on in ((0, flip & 1), (1, flip & 2)) if on]
+    return np.roll(np.flip(a, axes), VARIANT_SHIFTS[shift], (0, 1))
+
+
 def phase_eval(dev, image, labels):
     """PixelLevelEvaluator (trained 512 checkpoint, batch 16) over 32
     variants of the phantom slice with YOLO polygon labels traced from the
@@ -1714,18 +1749,15 @@ def phase_eval(dev, image, labels):
     )
     from eitx_torch.io import to_png_bytes
 
-    shifts = [(0, 0), (6, 0), (0, -9), (-5, 4), (11, 7), (-8, -12), (3, 15),
-              (-14, 2)]
     with tempfile.TemporaryDirectory() as root:
         img_dir, lab_dir = (os.path.join(root, d) for d in ("images",
                                                              "labels"))
         os.makedirs(img_dir)
         os.makedirs(lab_dir)
-        for k, (dy, dx) in enumerate(shifts):
+        for k in range(len(VARIANT_SHIFTS)):
             for flip in range(4):
-                axes = [a for a, on in ((0, flip & 1), (1, flip & 2)) if on]
-                img = np.roll(np.flip(image, axes), (dy, dx), (0, 1))
-                lab = np.roll(np.flip(labels, axes), (dy, dx), (0, 1))
+                img = _variant(image, k, flip)
+                lab = _variant(labels, k, flip)
                 name = f"v{k}_{flip}"
                 with open(os.path.join(img_dir, name + ".png"), "wb") as fh:
                     fh.write(to_png_bytes(np.ascontiguousarray(img)))
@@ -1815,7 +1847,7 @@ def phase_train(dev, image):
     profiled stretch (idle share, top kernels); one step on the card
     against the same step on the CPU; a ``.train`` round trip that
     continues as the run it came from; the deployment file labelling the
-    512^2 phantom on the card."""
+    512^2 phantom on the card. Returns the segmenter's phantom store."""
     import torch
 
     from eitx_torch.models.yolo.checkpoint import (
@@ -1979,6 +2011,300 @@ def phase_train(dev, image):
                   store=TRAIN_RIBS_STORE, step_ms=rstep_ms,
                   images_per_s=TRAIN_RIBS_BATCH * 1e3 / rstep_ms,
                   peak_memory_gib=rpeak, first_loss=rfirst, last_loss=rlast))
+    return store
+
+
+# the parallel phase: a world of one card on NCCL, joined through a file;
+# the blocks that the ranks of a world of PARALLEL_WORLD compute, on the card
+PARALLEL_STEPS, PARALLEL_TIMED = 3, 5
+PARALLEL_SEG_IMAGES = 16
+PARALLEL_WORLD = 4
+
+
+def _seg_variants(image, n: int) -> np.ndarray:
+    """The first ``n`` of the eval phase's flips and shifts of ``image``."""
+    k = len(VARIANT_SHIFTS)
+    return np.stack([_variant(image, i % k, i // k) for i in range(n)])
+
+
+def _dat_bytes(path: str, v, n_points: int, n_repeats: int) -> bytes:
+    from eitx_torch.fem.forward import write_dat
+
+    write_dat(path, v.cpu().numpy().reshape(n_points, -1), n_repeats)
+    with open(path, "rb") as fh:
+        return fh.read()
+
+
+def phase_parallel(dev, image, store):
+    """The sharded paths of eitx_torch.parallel on a world of one card
+    (NCCL, a FileStore): Trainer on a (1, 1) mesh against the meshless
+    trainer from one init (losses, batch statistics, ms per step, peak
+    memory); sharded_eit_monitoring, sharded_segment_labels and
+    sharded_group_solve against their single-device calls. At a world of
+    one these equalities check the wiring (a rank's block is the whole
+    run); the blocks that the ranks of a world of PARALLEL_WORLD compute,
+    run one after another on the card, check that the blocks reassemble
+    the single-device results. Returns the kernel launches of its
+    meshing."""
+    import torch
+    import torch.distributed as dist
+
+    from eitx_torch.core.config import ClassMap, ModelConfig, SimulationConfig
+    from eitx_torch.fem import LowRankSpectralSolver, forward_solve_batched
+    from eitx_torch.fem.solver import solve_stack_frames
+    from eitx_torch.mesh import create_mesh, pip
+    from eitx_torch.models.yolo.infer import TissueSegmenter
+    from eitx_torch.parallel import (
+        init_distributed,
+        make_device_mesh,
+        sharded_eit_monitoring,
+        sharded_group_solve,
+        sharded_segment_labels,
+    )
+    from eitx_torch.parallel.shard import (
+        group_solve_block,
+        labels_block,
+        monitoring_block,
+    )
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.data import device_batches
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(0, 1, os.path.join(tmp, "store"), "cuda")
+        try:
+            check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                  f"process group {dist.get_backend()}")
+            mesh2 = make_device_mesh(("data", "model"), (1, 1))
+            fmesh = make_device_mesh(("data",))
+
+            # training: the (1, 1) mesh against no mesh, one init, one stream
+            cfg = TrainConfig(**TRAIN_SEG)
+            plain = Trainer(cfg, seed=0, device=dev)
+            sharded = Trainer(cfg, mesh=mesh2, seed=0, device=dev)
+            check(all(torch.equal(a, b) for a, b in zip(
+                plain.state.params.values(),
+                sharded.state.params.values())), "the two inits differ")
+            runs = {}
+            for name, tr in (("plain", plain), ("mesh", sharded)):
+                stream = device_batches(store, TRAIN_SEG_BATCH, seed=0,
+                                        device=dev)
+                steps = [tr.train_step(next(stream))]
+                first_stats = {n: t.clone()
+                               for n, t in tr.state.batch_stats.items()}
+                steps += [tr.train_step(next(stream))
+                          for _ in range(PARALLEL_STEPS - 1)]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                step_ms, _ = _timed_steps(lambda: [
+                    tr.train_step(next(stream), device_metrics=True)
+                    for _ in range(PARALLEL_TIMED)], PARALLEL_TIMED)
+                runs[name] = dict(
+                    steps=steps, first_stats=first_stats, step_ms=step_ms,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+            loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                           for a, b in zip(runs["mesh"]["steps"],
+                                           runs["plain"]["steps"])
+                           for k in b)
+            # the batch statistics after the first step, as the train phase
+            # holds one step (the parameters after it are not bit-equal on
+            # the card: see the train phase's resume check)
+            want = runs["plain"]["first_stats"]
+            scale = max(float(t.abs().max()) for t in want.values())
+            stats_err = max(float((runs["mesh"]["first_stats"][n] - t).abs(
+            ).max()) for n, t in want.items()) / scale
+            check(loss_rel <= TRAIN_LOSS_RTOL,
+                  f"mesh vs meshless losses {loss_rel}")
+            check(stats_err <= TRAIN_STATS_OF_SCALE,
+                  f"mesh vs meshless batch_stats {stats_err} of scale")
+            train_s = time.perf_counter() - t0
+
+            # monitoring: the serving schedule's frames on an lc-7 thorax
+            sim = SimulationConfig()
+            pip.pip_launches = 0
+            meshes = []
+            for seed, lc in FACTORY_SUBJECTS:
+                _, m = create_mesh(["0.75", "0.75"], thorax_polygons(seed),
+                                   lc=lc, show_meshing_result_method="no",
+                                   device=dev)
+                meshes.append(m)
+            torch.cuda.synchronize()
+            launches = pip.pip_launches
+            check(launches == len(meshes),
+                  f"pip kernel launched {launches} times for {len(meshes)}")
+            systems = [subject_system(m, sim, dev) for m in meshes]
+            _, sigma, proto, el, cs = systems[0]
+            # the .dat's 1200 rows: the schedule's frames, 12 times over
+            n_rep = sim.n_spir * sim.n_minutes
+            frames = np.concatenate([sigma] * n_rep)
+            mon_args = (cs, frames, el, proto.ex_mat, proto.meas_mat)
+            stack = solve_stack_frames(cs, len(frames))
+            # peak memory: what a call allocates above the tensors alive
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            v_one, one_s = _time_call(
+                lambda: forward_solve_batched(*mon_args))
+            one_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+            v_shard, mon_s = _time_call(lambda: sharded_eit_monitoring(
+                *mon_args, mesh=fmesh))
+            check(v_shard.shape == v_one.shape == (len(frames), 16, 13),
+                  f"monitoring {tuple(v_shard.shape)}")
+            check(torch.equal(v_shard, v_one),
+                  "sharded monitoring != forward_solve_batched")
+            # the blocks of a world of PARALLEL_WORLD, one after another
+            blocks, block_s, block_gib = [], [], 0.0
+            for r in range(PARALLEL_WORLD):
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                v, t = _time_call(lambda: monitoring_block(
+                    *mon_args, r, PARALLEL_WORLD))
+                blocks.append(v)
+                block_s.append(t)
+                block_gib = max(block_gib, (torch.cuda.max_memory_allocated()
+                                            - base) / 2**30)
+            check(torch.equal(torch.cat(blocks)[:len(frames)], v_one),
+                  f"monitoring blocks of {PARALLEL_WORLD} ranks != one call")
+            del blocks, v_shard
+
+            # segmentation: 16 flips and shifts through the trained 512
+            # checkpoint at the serving settings
+            m = ModelConfig()
+            seg = TissueSegmenter(512, weights=os.path.join(
+                WEIGHTS, "tissue_n_512.msgpack"), variant="n",
+                conf=m.axial_conf_per_class, max_det=m.max_detections,
+                tta_fill=m.axial_tta_fill, dtype=m.dtype, device=dev)
+            imgs = _seg_variants(image, PARALLEL_SEG_IMAGES)
+            seg.segment_labels(imgs)  # warm-up: cuDNN's choices
+            lab_shard, seg_s = _time_call(
+                lambda: sharded_segment_labels(seg, imgs, fmesh))
+            lab_one, single_seg_s = _time_call(
+                lambda: seg.segment_labels(imgs))
+            agree = float((lab_shard == lab_one).mean())
+            check(agree >= 0.99, f"sharded labels agree {agree}")
+            coarse = torch.cat([labels_block(seg, imgs, r, PARALLEL_WORLD)
+                                for r in range(PARALLEL_WORLD)])
+            lab_blocks = np.empty_like(lab_one)
+            seg._upsample_labels_into(lab_blocks, coarse.cpu().numpy(), q=4)
+            agree_blocks = float((lab_blocks == lab_one).mean())
+            check(agree_blocks >= 0.99,
+                  f"labels of {PARALLEL_WORLD} ranks' blocks agree "
+                  f"{agree_blocks}")
+
+            # the factory's nine subjects: solvers per node bucket, as
+            # generate_batch builds them; the group solve over 'data'
+            classes = ClassMap()
+            lung = classes.name_to_id()["lung"]
+            alphas = sigma[:, lung]
+            a0 = float(alphas.mean())
+            groups = collections.defaultdict(list)
+            for i, (_, _, _, _, c) in enumerate(systems):
+                groups[tuple(c.k_class.shape)].append(i)
+            solvers = [None] * len(systems)
+            for idxs in groups.values():
+                built = LowRankSpectralSolver.build_batch(
+                    [systems[i][4] for i in idxs], sigma[0], lung,
+                    [systems[i][3] for i in idxs], proto.ex_mat,
+                    proto.meas_mat, [a0] * len(idxs),
+                    rank_bucket=sim.spectral_rank_bucket)
+                for i, sv in zip(idxs, built):
+                    solvers[i] = sv
+            v_group, group_s = _time_call(
+                lambda: sharded_group_solve(solvers, alphas, fmesh))
+            v_blocks = torch.cat([
+                group_solve_block(solvers, alphas, r, PARALLEL_WORLD)
+                for r in range(PARALLEL_WORLD)])
+            check(all(torch.equal(v_blocks[k], v) for k, v in
+                      enumerate(v_group)),
+                  f"group solve of {PARALLEL_WORLD} ranks' blocks != one")
+            t1 = time.perf_counter()
+            for k, sv in enumerate(solvers):
+                a = _dat_bytes(os.path.join(tmp, f"single{k}.dat"),
+                               sv.solve(alphas), sim.n_points, n_rep)
+                b = _dat_bytes(os.path.join(tmp, f"shard{k}.dat"),
+                               v_group[k], sim.n_points, n_rep)
+                check(a == b, f"subject {k}: sharded .dat bytes differ")
+                check(a.count(b"\n") == sim.n_points * n_rep,
+                      f"subject {k}: .dat rows")
+            dat_s = time.perf_counter() - t1
+        finally:
+            dist.destroy_process_group()
+    emit("parallel", backend="nccl", world_size=1,
+         train=dict(config=TRAIN_SEG, batch=TRAIN_SEG_BATCH,
+                    compared_steps=PARALLEL_STEPS,
+                    loss_rel=loss_rel, loss_rtol_bound=TRAIN_LOSS_RTOL,
+                    batch_stats_of_scale=stats_err,
+                    stats_bound=TRAIN_STATS_OF_SCALE,
+                    step_ms_mesh=runs["mesh"]["step_ms"],
+                    step_ms_plain=runs["plain"]["step_ms"],
+                    peak_gib_mesh=runs["mesh"]["peak_gib"],
+                    peak_gib_plain=runs["plain"]["peak_gib"], s=train_s,
+                    losses_mesh=runs["mesh"]["steps"],
+                    losses_plain=runs["plain"]["steps"]),
+         monitoring=dict(frames=len(frames), stack_frames=stack,
+                         nodes_padded=int(cs.n_nodes), equal=True,
+                         sharded_s=mon_s, single_s=one_s,
+                         single_peak_gib=one_gib,
+                         blocks_of=PARALLEL_WORLD, blocks_equal=True,
+                         block_s=block_s, block_peak_gib=block_gib),
+         labels=dict(images=PARALLEL_SEG_IMAGES, agreement=agree,
+                     equal=agree == 1.0, sharded_s=seg_s,
+                     single_s=single_seg_s, blocks_of=PARALLEL_WORLD,
+                     blocks_agreement=agree_blocks),
+         group_solve=dict(subjects=len(solvers), buckets=len(groups),
+                          blocks_of=PARALLEL_WORLD, blocks_equal=True,
+                          dat_rows=sim.n_points * n_rep, dat_cols=208,
+                          dat_bytes_equal=True, s=group_s,
+                          dat_write_s=dat_s),
+         pip_launches=launches)
+    return launches
+
+
+def phase_scripts(dev, series):
+    """The profiling and dataset scripts on the card: profile_seg (512,
+    batch 16), profile_setup (batch 8), eval_ood_fixture at 512 with one
+    seed on the trained checkpoint, build_datasets frontal on the series
+    zip."""
+    from eitx_torch.io import decode_image
+    from eitx_torch.scripts import (
+        build_datasets,
+        eval_ood_fixture,
+        profile_seg,
+        profile_setup,
+    )
+
+    t0 = time.perf_counter()
+    seg = profile_seg.profile(512, 16, 3, device=dev)
+    check(seg["network"]["gflops"] > 0 and seg["fused_e2e"]["ms"] > 0,
+          f"profile_seg {seg}")
+    seg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    setup = profile_setup.profile(8, 3, device=dev)
+    check(setup["build"]["single_ms"] > 0, f"profile_setup {setup}")
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ood = eval_ood_fixture.main(["--sizes", "512", "--seeds", "1",
+                                 "--device", str(dev)])["512"]
+    # tests/test_ood_fixture.py's ratchets at the 512 slot (seed 5)
+    check(ood["macro_iou"] >= 0.76 and ood["per_class_iou"]["muscles"]
+          >= 0.75 and ood["per_class_iou"]["fat"] >= 0.83, f"ood {ood}")
+    ood_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        zp = os.path.join(tmp, "series.zip")
+        with open(zp, "wb") as fh:
+            fh.write(series.getvalue())
+        out = os.path.join(tmp, "front")
+        n = build_datasets.build_frontal_dataset([zp], out, device=dev)
+        files = sorted(os.listdir(out))
+        with open(os.path.join(out, files[SERIES_SIZE // 2]), "rb") as fh:
+            mid = decode_image(fh.read())
+    check(n == len(files) == SERIES_SIZE, f"frontal images {n}")
+    check(mid.shape == (SERIES_SLICES, SERIES_SIZE) and mid.max() == 255,
+          f"frontal image {mid.shape} max {mid.max()}")
+    emit("scripts", profile_seg=seg, profile_seg_s=seg_s,
+         profile_setup=setup, profile_setup_s=setup_s,
+         eval_ood_fixture=ood, eval_ood_s=ood_s,
+         build_frontal=dict(images=n, s=time.perf_counter() - t0))
 
 
 def main() -> int:
@@ -2036,9 +2362,12 @@ def main() -> int:
     launches += timed(phase_inverse, dev)
     launches += timed(phase_serve, dev, image, series,
                       int(series_fixture["slice_index"]) + 1)
-    del series
     timed(phase_eval, dev, image, ref_labels)
-    timed(phase_train, dev, image)
+    store = timed(phase_train, dev, image)
+    launches += timed(phase_parallel, dev, image, store)
+    del store
+    timed(phase_scripts, dev, series)
+    del series
 
     print(json.dumps({"kernels": [{
         "name": "pip",

@@ -6,7 +6,8 @@ answer. Here timing is a first-class module: nested spans collected into a
 dict. Every pipeline stage ends by copying its result to the host, which
 waits for the device, so a span covers the stage's device work.
 ``device_trace`` is the counterpart of eitx.core.timing.device_trace on
-``torch.profiler``.
+``torch.profiler``; ``call_ms`` times a call on the card or the CPU for the
+profiling scripts.
 """
 
 from __future__ import annotations
@@ -14,7 +15,9 @@ from __future__ import annotations
 import contextlib
 import logging
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional
+
+import torch
 
 logger = logging.getLogger("eitx_torch")
 
@@ -68,3 +71,25 @@ def device_trace(logdir: Optional[str] = None):
         on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir),
     ):
         yield
+
+
+def call_ms(fn, *args, repeats: int = 5, device="cuda") -> List[float]:
+    """ms of each of ``repeats`` calls of ``fn(*args)`` after one warm-up
+    call: between two CUDA events on the card, by the host's clock up to
+    the call's return on the CPU."""
+    fn(*args)
+    times = []
+    for _ in range(repeats):
+        if torch.device(device).type == "cuda":
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn(*args)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        else:
+            t0 = time.perf_counter()
+            fn(*args)
+            times.append(1e3 * (time.perf_counter() - t0))
+    return times

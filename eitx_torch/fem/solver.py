@@ -6,7 +6,8 @@ library calls on the device:
   sigma (T, C)  --product-->  K (T, N, N)  --batched Cholesky-->  U (T, N, E)
                                             --gather/diff-->      V (T, E, n_meas)
 
-with T breathing frames and E excitations solved at once. Products and
+with T breathing frames and E excitations solved at once (in stacks of
+a bounded size where K of all T frames would not fit). Products and
 solves run in full float32 (TF32 off): the reference pins ``"highest"``
 matmul precision (eitx/fem/solver.py:100).
 """
@@ -23,6 +24,11 @@ from .assembly import ClassStiffness, assemble_stiffness
 # iterations: the check waits for the device, the iterations in between do
 # not (a frame that converged in between stays frozen, so nothing changes)
 CG_CHECK_EVERY = 16
+
+# the direct solve factors at most this many bytes of K(t) at once (K, its
+# factor and the product's temporary live together): an lc-7 thorax's
+# 3072^2 float32 system is 38 MB a frame, so 113 frames a stack
+SOLVE_STACK_BYTES = 4 << 30
 
 
 def _rhs_matrix(el_pos, ex_mat, n_nodes: int, dtype, device) -> torch.Tensor:
@@ -81,6 +87,18 @@ def forward_solve(
     return _measure(U[_index(el_pos, dev), :], _index(meas_mat, dev))
 
 
+def solve_stack_frames(cs: ClassStiffness, n_frames: int) -> int:
+    """Frames in each stack the direct solve factors at once: all
+    ``n_frames`` where their K(t) fit in ``SOLVE_STACK_BYTES``, else the
+    fewest equal stacks that fit (the last padded). A function of the
+    mesh and the run's frame count alone, so every rank of a sharded run
+    computes the single call's stacks."""
+    per_frame = cs.n_nodes * cs.n_nodes * cs.k_class.element_size()
+    cap = max(1, SOLVE_STACK_BYTES // per_frame)
+    n_stacks = -(-n_frames // cap)
+    return -(-n_frames // n_stacks)
+
+
 def forward_solve_batched(
     cs: ClassStiffness, sigma, el_pos, ex_mat, meas_mat,
 ) -> torch.Tensor:
@@ -92,22 +110,54 @@ def forward_solve_batched(
       el_pos/ex_mat/meas_mat: electrode nodes and protocol arrays.
     Returns:
       (T, n_exc, n_meas) voltages on ``cs``'s device.
+
+    The frames are solved in stacks of ``solve_stack_frames(cs, T)``
+    (one stack up to ``SOLVE_STACK_BYTES`` of K(t)).
     """
+    sigma = _values(sigma, cs.k_class.dtype, cs.k_class.device)
+    return solve_frames_in_stacks(cs, sigma, el_pos, ex_mat, meas_mat,
+                                  solve_stack_frames(cs, sigma.shape[0]))
+
+
+def solve_frames_in_stacks(cs: ClassStiffness, sigma: torch.Tensor, el_pos,
+                           ex_mat, meas_mat, stack: int) -> torch.Tensor:
+    """``forward_solve_batched``'s voltages of the frames ``sigma`` (a
+    tensor on ``cs``'s device), solved in stacks of ``stack`` frames, the
+    last padded by repeating its last frame. Every library call sees a
+    stack of ``stack`` whichever frames fill it: on the card a batched
+    call's rounding depends on the stack's size (a frame's triangular
+    solves in a stack of 25 are 1.3e-6 of scale from the same frame's in
+    a stack of 100; tests/torch_batch_invariance.py), not on a frame's
+    place or neighbours in it. So a rank of a sharded run that solves its
+    block of frames in the single call's stacks gets the single call's
+    voltages."""
     dev, dt = cs.k_class.device, cs.k_class.dtype
-    sigma = _values(sigma, dt, dev)
+    B = _rhs_matrix(el_pos, ex_mat, cs.n_nodes, dt, dev)
+    B[cs.ref_node, :] = 0.0
+    el, meas = _index(el_pos, dev), _index(meas_mat, dev)
+    out = []
+    for lo in range(0, sigma.shape[0], stack):
+        s = sigma[lo:lo + stack]
+        n = s.shape[0]
+        if n < stack:
+            s = torch.cat([s, s[-1:].expand(stack - n, -1)])
+        out.append(_solve_stack(cs, s, B, el, meas)[:n])
+    return out[0] if len(out) == 1 else torch.cat(out)
+
+
+def _solve_stack(cs: ClassStiffness, sigma, B, el, meas) -> torch.Tensor:
+    """Voltages (S, n_exc, n_meas) of one stack of S frames."""
     # Voltages are 1/alpha-homogeneous in conductivity: solving with
     # sigma/s and dividing the result by s keeps the Cholesky on a
     # well-scaled matrix (better f32 conditioning across frames).
-    scale = sigma.mean(dim=1, keepdim=True)  # (T, 1)
+    scale = sigma.mean(dim=1, keepdim=True)  # (S, 1)
     K = cs.system_matrices(sigma / scale)  # ref node + padding nodes
-    B = _rhs_matrix(el_pos, ex_mat, cs.n_nodes, dt, dev)
-    B[cs.ref_node, :] = 0.0
     L = torch.linalg.cholesky(K)
     U = torch.cholesky_solve(B.expand(K.shape[0], -1, -1), L)
     # one step of iterative refinement claws back ~an order of
     # magnitude of f32 round-off for a product + triangular solve
     U = U + torch.cholesky_solve(B - K @ U, L)
-    v = _measure(U[:, _index(el_pos, dev), :], _index(meas_mat, dev))
+    v = _measure(U[:, el, :], meas)
     return v / scale[:, :, None]
 
 

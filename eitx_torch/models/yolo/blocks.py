@@ -31,6 +31,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     variance. Inference (eval mode) is ``nn.BatchNorm2d``'s."""
 
     flax_momentum = 0.97
+    # the process group of the ranks that hold the other images of the
+    # batch (the mesh's data axis; ``Trainer(mesh=...)`` sets it): the
+    # batch statistics are then the global batch's, as under eitx's
+    # sharding, where XLA all-reduces them
+    sync_group = None
 
     def __init__(self, num_features: int):
         super().__init__(num_features, eps=1e-3)
@@ -38,8 +43,11 @@ class BatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        mean = x.mean((0, 2, 3))
-        var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+        if self.sync_group is None:
+            mean = x.mean((0, 2, 3))
+            var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
+        else:
+            mean, var = self._global_moments(x)
         with torch.no_grad():
             m = self.flax_momentum
             self.running_mean.mul_(m).add_(mean.detach(), alpha=1.0 - m)
@@ -47,6 +55,23 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+
+    def _global_moments(self, x):
+        """Mean and flax's fast variance over every rank's images. The
+        ranks hold equal blocks of the batch (``parallel.shard_batch``),
+        so the global mean of x and of x^2 is the mean of the ranks'
+        means: one all-reduce over ``sync_group`` that carries the
+        gradient back to every rank. A group of one computes exactly what
+        the single-device path computes."""
+        from torch.distributed import get_world_size
+        from torch.distributed.nn.functional import all_reduce
+
+        c = x.shape[1]
+        m = all_reduce(torch.cat([x.mean((0, 2, 3)), (x * x).mean((0, 2, 3))]),
+                       group=self.sync_group)
+        m = m / float(get_world_size(self.sync_group))
+        mean = m[:c]
+        return mean, torch.clamp_min(m[c:] - mean * mean, 0.0)
 
 
 class Conv(nn.Module):

@@ -29,6 +29,18 @@ Where the port has to take care to compute what the reference computes:
     which builds ``jax.image.resize``'s weights (models/yolo/infer.py).
   - The step runs in float32 with TF32 off (switched off once, when
     ``eitx_torch`` is imported).
+
+On a (data, model) mesh (``Trainer(cfg, mesh=...)``, one process a rank)
+one step computes what one step on one device computes on the global
+batch, as eitx's step under ``pjit`` does: every rank is given the global
+batch and takes its block over ``data``; BatchNorm's batch statistics are
+all-reduced over ``data``; the parameters are FSDP2 shards over ``model``
+(replicated over ``data``), whose gradients FSDP2 averages over every rank
+(the ``model`` ranks of one ``data`` block hold equal gradients, so the
+mean over all ranks is the mean over ``data``); the clipping norm sums
+the local shards' squares over ``model``; AdamW and the EMA update the
+local shards. ``state`` hands out whole tensors, and its setter places
+whole tensors into the shards.
 """
 
 from __future__ import annotations
@@ -40,9 +52,11 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..models.yolo.blocks import BatchNorm2d
 from ..models.yolo.infer import _resize_bilinear
 from ..models.yolo.model import YoloV11, yolov11_spec
 from ..models.yolo.post import _dfl
@@ -227,12 +241,19 @@ def _assign_tal(anchors, pred_boxes, cls_logits, boxes, classes, valid,
     return torch.where(has, best, -1), align
 
 
-def clip_by_global_norm(grads: List[torch.Tensor],
-                        max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
+                        group=None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: the tensors as they are when their
     global norm is below ``max_norm``, else ``(g / norm) * max_norm`` (no
-    epsilon), chosen on the device without waiting for it."""
+    epsilon), chosen on the device without waiting for it. With ``group``
+    the tensors are shards and the norm is the whole tensors': the local
+    squares are summed over ``group`` first."""
     g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    if group is not None:
+        # sqrt(fl(n * n)) == n: a group of one keeps the local norm's bits
+        sq = g_norm * g_norm
+        dist.all_reduce(sq, group=group)
+        g_norm = torch.sqrt(sq)
     keep = (g_norm < max_norm).to(g_norm.dtype)
     clipped = torch._foreach_div(grads, g_norm)
     torch._foreach_mul_(clipped, max_norm)
@@ -275,19 +296,31 @@ def _bn_buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
             if n.endswith(("running_mean", "running_var"))}
 
 
+def _check_mesh(mesh, device: torch.device) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        raise TypeError(f"mesh: a DeviceMesh (eitx_torch.parallel."
+                        f"make_device_mesh), got {type(mesh).__name__}")
+    if mesh.device_type != device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for a trainer on "
+                         f"{device}: no fallback between the two")
+    if mesh.mesh_dim_names != ("data", "model"):
+        raise ValueError(f"Trainer(mesh=...) takes a (data, model) mesh, "
+                         f"got axes {mesh.mesh_dim_names}")
+
+
 class Trainer:
     """One YOLOv11 network, its optimizer state and the train step, on
-    ``device`` (the card unless the caller asks for the CPU)."""
+    ``device`` (the card unless the caller asks for the CPU), or, with
+    ``mesh`` (a (data, model) ``DeviceMesh``), this rank's part of the
+    data- and FSDP-parallel step; every rank of the mesh builds its
+    Trainer with the same arguments and calls each method together."""
 
     def __init__(self, cfg: TrainConfig = TrainConfig(), mesh=None,
                  seed: int = 0, device="cuda"):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...): data and FSDP parallelism come with the "
-                "port of eitx.parallel (ROADMAP.md, queue 1, item 3); the "
-                "port trains on one device")
         self.cfg = cfg
-        self.mesh = None
+        self.mesh = mesh
         self.device = resolve_device(device)
         spec = yolov11_spec(cfg.variant, nc=cfg.nc, segment=cfg.segment,
                             proto_stride=cfg.proto_stride)
@@ -296,6 +329,17 @@ class Trainer:
             model = YoloV11(spec)
             _flax_like_init(model)
         self.model = model.to(self.device).train()
+        self._data_group = self._model_group = None
+        if mesh is not None:
+            from ..parallel.shard import shard_params_fsdp
+
+            _check_mesh(mesh, self.device)
+            self._data_group = mesh.get_group("data")
+            self._model_group = mesh.get_group("model")
+            for m in self.model.modules():
+                if isinstance(m, BatchNorm2d):
+                    m.sync_group = self._data_group
+            shard_params_fsdp(self.model, mesh)
         self._names = [n for n, _ in self.model.named_parameters()]
         self._params = [p for _, p in self.model.named_parameters()]
         self._stats = _bn_buffers(self.model)
@@ -318,50 +362,116 @@ class Trainer:
         return self._consts[key]
 
     # ------------------------------------------------------------------
+    def local_params(self) -> Dict[str, torch.Tensor]:
+        """The parameters this rank holds and updates, by name: the live
+        tensors on one device, this rank's shards on a mesh."""
+        if self.mesh is None:
+            return dict(zip(self._names, self._params))
+        return {n: p.to_local() for n, p in zip(self._names, self._params)}
+
+    def full_params(self, local: Dict[str, torch.Tensor]
+                    ) -> Dict[str, torch.Tensor]:
+        """Shards laid out as ``local_params()`` -> whole tensors, on every
+        rank of the mesh (a collective); on one device, ``local``."""
+        if self.mesh is None:
+            return local
+        from torch.distributed.tensor import DTensor
+
+        out = {}
+        for n, p in zip(self._names, self._params):
+            out[n] = DTensor.from_local(
+                local[n].detach(), p.device_mesh, p.placements,
+                run_check=False, shape=p.shape,
+                stride=p.stride()).full_tensor()
+        return out
+
+    def _to_local(self, full: Dict[str, torch.Tensor], what: str
+                  ) -> Dict[str, torch.Tensor]:
+        """Whole tensors (any device) -> this rank's shards, new tensors
+        laid out as ``local_params()``."""
+        if set(full) != set(self._names):
+            raise ValueError(
+                f"{what} names differ: missing "
+                f"{sorted(set(self._names) - set(full))[:4]}, extra "
+                f"{sorted(set(full) - set(self._names))[:4]}")
+        if self.mesh is None:
+            return {n: torch.as_tensor(full[n]).to(p.device, p.dtype,
+                                                   copy=True)
+                    for n, p in zip(self._names, self._params)}
+        from torch.distributed.tensor import distribute_tensor
+
+        out = {}
+        for n, p in zip(self._names, self._params):
+            t = torch.as_tensor(full[n]).to(self.device, p.dtype)
+            out[n] = distribute_tensor(t, p.device_mesh, p.placements,
+                                       src_data_rank=None).to_local().clone()
+        return out
+
     def init_opt_state(self) -> OptState:
         """A fresh optimizer state (zero moments, count 0) for the
-        network's parameters."""
-        return OptState(
-            mu={n: torch.zeros_like(p) for n, p in zip(self._names,
-                                                       self._params)},
-            nu={n: torch.zeros_like(p) for n, p in zip(self._names,
-                                                       self._params)},
-            count=0)
+        parameters this rank holds."""
+        local = self.local_params()
+        return OptState(mu={n: torch.zeros_like(p) for n, p in local.items()},
+                        nu={n: torch.zeros_like(p) for n, p in local.items()},
+                        count=0)
 
     @property
     def state(self) -> TrainState:
-        return TrainState(params=dict(zip(self._names, self._params)),
-                          batch_stats=dict(self._stats),
-                          opt_state=self.opt_state, step=self.step)
+        """On one device the live tensors; on a mesh whole copies, on
+        every rank (a collective)."""
+        st = self.opt_state
+        return TrainState(
+            params=self.full_params(self.local_params()),
+            batch_stats=dict(self._stats),
+            opt_state=OptState(mu=self.full_params(st.mu),
+                               nu=self.full_params(st.nu), count=st.count),
+            step=self.step)
 
     @state.setter
     def state(self, new: TrainState) -> None:
-        def copy_in(dst: Dict[str, torch.Tensor], src, what: str):
-            if set(dst) != set(src):
-                raise ValueError(
-                    f"{what} names differ: missing "
-                    f"{sorted(set(dst) - set(src))[:4]}, extra "
-                    f"{sorted(set(src) - set(dst))[:4]}")
-            with torch.no_grad():
-                for n, t in dst.items():
-                    t.copy_(torch.as_tensor(src[n]).to(t.device, t.dtype))
-
-        copy_in(dict(zip(self._names, self._params)), new.params, "params")
-        copy_in(self._stats, new.batch_stats, "batch_stats")
-        fresh = self.init_opt_state()
-        copy_in(fresh.mu, new.opt_state.mu, "first moments")
-        copy_in(fresh.nu, new.opt_state.nu, "second moments")
-        fresh.count = int(new.opt_state.count)
-        self.opt_state = fresh
+        if set(self._stats) != set(new.batch_stats):
+            raise ValueError(
+                f"batch_stats names differ: missing "
+                f"{sorted(set(self._stats) - set(new.batch_stats))[:4]}, "
+                f"extra {sorted(set(new.batch_stats) - set(self._stats))[:4]}")
+        params = self._to_local(new.params, "params")
+        with torch.no_grad():
+            for n, t in self.local_params().items():
+                t.copy_(params[n])
+            for n, t in self._stats.items():
+                t.copy_(torch.as_tensor(new.batch_stats[n]).to(t.device,
+                                                               t.dtype))
+        self.opt_state = OptState(
+            mu=self._to_local(new.opt_state.mu, "first moments"),
+            nu=self._to_local(new.opt_state.nu, "second moments"),
+            count=int(new.opt_state.count))
         self.step = int(new.step)
 
     # ------------------------------------------------------------------
     def _device_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """The batch on the device; on a mesh, this rank's block of it
+        over ``data``."""
+        if self.mesh is not None:
+            from ..parallel.shard import shard_batch
+
+            batch = {k: shard_batch(v, self.mesh) for k, v in batch.items()}
         b = {k: torch.as_tensor(np.asarray(v) if not isinstance(
                  v, torch.Tensor) else v).to(self.device)
              for k, v in batch.items()}
         b["valid"] = b["valid"].to(torch.float32)
         return b
+
+    def _mean_over_data(self, metrics: Dict[str, torch.Tensor]
+                        ) -> Dict[str, torch.Tensor]:
+        """Each rank's batch means -> the global batch's (equal blocks):
+        their mean over ``data``, in one all-reduce."""
+        if self.mesh is None:
+            return metrics
+        keys = list(metrics)
+        v = torch.stack([metrics[k] for k in keys])
+        dist.all_reduce(v, group=self._data_group)
+        v = v / self._const(float(self.mesh["data"].size()))
+        return dict(zip(keys, v.unbind(0)))
 
     def _loss(self, batch: Dict[str, torch.Tensor]):
         """(loss, metrics) of one batch through the network in training
@@ -509,10 +619,12 @@ class Trainer:
         weight_decay))`` on the gradients, then ``apply_updates``: fused
         ``_foreach`` launches, and no wait for the device (the schedule
         and the bias corrections depend on the count alone)."""
-        params = self._params
-        grads = clip_by_global_norm(
-            [p.grad if p.grad is not None else torch.zeros_like(p)
-             for p in params], _CLIP_NORM)
+        params = list(self.local_params().values())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self._params]
+        if self.mesh is not None:
+            grads = [g.to_local() for g in grads]
+        grads = clip_by_global_norm(grads, _CLIP_NORM, self._model_group)
         st = self.opt_state
         mu = [st.mu[n] for n in self._names]
         nu = [st.nu[n] for n in self._names]
@@ -546,6 +658,7 @@ class Trainer:
         loss.backward()
         self._apply_updates()
         self.step += 1
+        metrics = self._mean_over_data(metrics)
         if device_metrics:
             return metrics
         return {k: float(v) for k, v in metrics.items()}
@@ -561,7 +674,7 @@ class Trainer:
                 _, metrics = self._loss(b)
         finally:
             torch._foreach_copy_(list(self._stats.values()), saved)
-        return {k: float(v) for k, v in metrics.items()}
+        return {k: float(v) for k, v in self._mean_over_data(metrics).items()}
 
 
 class EMA:
@@ -592,6 +705,26 @@ class EMA:
         return self.params
 
 
+def _save(trainer: Trainer, path: str) -> None:
+    """Write the trainer's checkpoint. On a mesh every rank gathers the
+    whole state (a collective), the mesh's first rank alone writes it
+    (several writers of one file race), and every rank of the mesh waits
+    until the file is complete."""
+    from .checkpoint import save_checkpoint
+
+    state = trainer.state
+    mesh = trainer.mesh
+    if mesh is None:
+        save_checkpoint(path, state)
+        return
+    if not any(mesh.get_coordinate()):
+        save_checkpoint(path, state)
+    # a barrier over each axis in turn: the first holds the ranks (i, 0)
+    # until the write is done, the next holds (i, j) until (i, 0) passed
+    for dim in range(mesh.ndim):
+        dist.barrier(group=mesh.get_group(dim))
+
+
 def fit(
     trainer: Trainer,
     data_iter,
@@ -606,15 +739,15 @@ def fit(
     """Minimal training loop: steps batches from ``data_iter`` with EMA,
     periodic checkpointing, and (when ``val_batch`` is given) a held-out
     validation loss logged every ``val_every`` steps. Returns
-    (final metrics, EMA params)."""
-    from .checkpoint import save_checkpoint
-
-    ema = EMA(trainer.state.params, ema_decay)
+    (final metrics, EMA params). On a mesh every rank runs ``fit``
+    together: the EMA averages each rank's shards, rank 0 alone writes
+    the checkpoint, and every rank gets the whole EMA parameters."""
+    ema = EMA(trainer.local_params(), ema_decay)
     metrics: Dict[str, Any] = {}
     for step in range(steps):
         batch = next(data_iter)
         metrics = trainer.train_step(batch, device_metrics=True)
-        ema.update(trainer.state.params)
+        ema.update(trainer.local_params())
         if log_every and step % log_every == 0:
             metrics = {k: float(v) for k, v in metrics.items()}
             log.info("step %d: %s", step,
@@ -625,8 +758,8 @@ def fit(
             log.info("step %d VAL: %s", step,
                      {k: round(v, 4) for k, v in vm.items()})
         if checkpoint_path and (step + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, trainer.state)
+            _save(trainer, checkpoint_path)
     if checkpoint_path:
-        save_checkpoint(checkpoint_path, trainer.state)
+        _save(trainer, checkpoint_path)
     metrics = {k: float(v) for k, v in metrics.items()}
-    return metrics, ema.params
+    return metrics, trainer.full_params(ema.params)

@@ -573,3 +573,106 @@ def test_train_checkpoint_round_trip_on_card(dev, tmp_path):
     assert (fresh.state.step, fresh.opt_state.count) == (2, 2)
     a, b = fresh.train_step(_train_batch()), tr.train_step(_train_batch())
     assert all(abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) for k in b)
+
+
+@pytest.fixture
+def nccl_world_of_one(dev, tmp_path):
+    """A process group of this one card on NCCL, joined through a file;
+    destroyed after the test."""
+    import torch.distributed as dist
+
+    from eitx_torch.parallel import init_distributed
+
+    init_distributed(0, 1, str(tmp_path / "store"), "cuda")
+    yield dev
+    dist.destroy_process_group()
+
+
+def test_mesh_trainer_on_card_equals_meshless(nccl_world_of_one):
+    """A step on a (data, model) = (1, 1) mesh on NCCL against the
+    meshless trainer from the same init and batch: the loss components
+    within rtol 1e-5 (a group of one computes the single-device step; the
+    card's backward is not bit-reproducible, so one step), and the state
+    comes back whole."""
+    from eitx_torch.parallel import make_device_mesh
+    from eitx_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(**TRAIN_CFG)
+    mesh = make_device_mesh(("data", "model"), (1, 1))
+    plain = Trainer(cfg, device=nccl_world_of_one)
+    sharded = Trainer(cfg, mesh=mesh, device=nccl_world_of_one)
+    a, b = sharded.train_step(_train_batch()), plain.train_step(
+        _train_batch())
+    assert all(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]) for k in b), (a, b)
+    st = sharded.state
+    assert all(tuple(st.params[n].shape) == tuple(p.shape)
+               for n, p in plain.state.params.items())
+
+
+def test_sharded_monitoring_and_group_solve_on_card(nccl_world_of_one):
+    """sharded_eit_monitoring and sharded_group_solve on a world of one
+    card: equal to forward_solve_batched and to each subject's solve; the
+    blocks of frames that the ranks of a larger world solve equal the
+    whole call's frames."""
+    from eitx_torch.fem import (
+        ClassStiffness,
+        LowRankSpectralSolver,
+        create_protocol,
+        forward_solve_batched,
+        place_electrodes_equal_spacing,
+    )
+    from eitx_torch.fem import solver
+    from eitx_torch.mesh.triangulate import triangulate_polygon
+    from eitx_torch.parallel import (
+        make_device_mesh,
+        sharded_eit_monitoring,
+        sharded_group_solve,
+    )
+    from eitx_torch.parallel.shard import monitoring_block
+
+    whole_bytes = solver.SOLVE_STACK_BYTES
+    dev = nccl_world_of_one
+    fmesh = make_device_mesh(("data",))
+    proto = create_protocol(16, 1, 1, "std")
+    systems = []
+    for k in range(3):
+        th = np.linspace(0, 2 * np.pi, 48, endpoint=False)
+        poly = np.stack([100 + (80 + k) * np.cos(th),
+                         100 + 70 * np.sin(th)], 1)
+        nodes, tris = triangulate_polygon(poly, lc=12)
+        cls = np.ones(tris.shape[0], dtype=np.int64)
+        cls[np.linalg.norm(nodes[tris].mean(1) - [80, 100], axis=1) < 25] = 2
+        systems.append((ClassStiffness.build(
+            nodes, tris, cls, n_classes=5, pad_nodes_to=128,
+            pad_elems_to=256, device=dev),
+            place_electrodes_equal_spacing(nodes, tris, 16,
+                                           starting_angle=np.pi)))
+    sigma = np.tile([0.006, 0.35, 0.15, 0.017, 0.4], (6, 1))
+    sigma[:, 2] = np.linspace(0.06, 0.18, 6)
+    cs, el = systems[0]
+    whole = forward_solve_batched(cs, sigma, el, proto.ex_mat, proto.meas_mat)
+    assert torch.equal(
+        sharded_eit_monitoring(cs, sigma, el, proto.ex_mat, proto.meas_mat,
+                               mesh=fmesh), whole)
+    # every rank's block of a larger world, solved in the single call's
+    # stacks (one of 6 frames, then stacks of 4: [0, 4), [4, 6) + 2): the
+    # same bits
+    for stack_frames in (6, 4):
+        solver.SOLVE_STACK_BYTES = (stack_frames * cs.n_nodes ** 2
+                                    * cs.k_class.element_size())
+        try:
+            want = forward_solve_batched(cs, sigma, el, proto.ex_mat,
+                                         proto.meas_mat)
+            for size in (2, 3, 4, 6):
+                got = torch.cat([monitoring_block(
+                    cs, sigma, el, proto.ex_mat, proto.meas_mat, r, size)
+                    for r in range(size)])[:6]
+                assert torch.equal(got, want), (stack_frames, size)
+        finally:
+            solver.SOLVE_STACK_BYTES = whole_bytes
+    solvers = LowRankSpectralSolver.build_batch(
+        [s[0] for s in systems], sigma[0], 2, [s[1] for s in systems],
+        proto.ex_mat, proto.meas_mat, [0.12] * 3)
+    alphas = sigma[:, 2]
+    for s, v in zip(solvers, sharded_group_solve(solvers, alphas, fmesh)):
+        assert torch.equal(v, s.solve(alphas))

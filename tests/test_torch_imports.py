@@ -38,6 +38,8 @@ MODULES = [
     "eitx_torch.scripts.train_ribs",
     "eitx_torch.models.yolo.convert",
     "eitx_torch.models.yolo.ptread",
+    "eitx_torch.parallel",
+    "eitx_torch.parallel.dryrun",
 ]
 
 
@@ -92,7 +94,9 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_exports_match_eitx():
     """The names eitx's packages export where the port has them: the
     pipeline's batch factory, the timing module's device trace, the
-    training package."""
+    training package, the parallel package (eitx's five names and the
+    group solve)."""
+    import eitx_torch.parallel as parallel
     import eitx_torch.pipeline as pipeline
     import eitx_torch.train as train
     from eitx_torch.core import timing
@@ -104,6 +108,10 @@ def test_exports_match_eitx():
                  "synthetic_ct_batch"):
         assert name in train.__all__ and hasattr(train, name), name
     assert callable(timing.device_trace)
+    for name in ("make_device_mesh", "shard_batch", "shard_params_fsdp",
+                 "sharded_eit_monitoring", "sharded_segment_labels",
+                 "sharded_group_solve"):
+        assert name in parallel.__all__ and hasattr(parallel, name), name
 
 
 def test_device_trace_is_a_noop_without_logdir(tmp_path):

@@ -507,7 +507,9 @@ def test_train_steps_match_eitx(jax_side, record_property, tmp_path):
 
 
 def test_trainer_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="parallel"):
+    """A mesh is a DeviceMesh of eitx_torch.parallel (the sharded step is
+    tests/test_torch_parallel.py's); anything else raises before a step."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         Trainer(TrainConfig(imgsz=IMG, variant="n"), mesh=object(),
                 device="cpu")
     if not torch.cuda.is_available():  # the default is the card, or raise
