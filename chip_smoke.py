@@ -26,7 +26,8 @@ its plain PyTorch version:
     640^2 through ``Trainer``, ``device_batches`` and ``fit``;
   - the sharded paths of ``eitx_torch.parallel`` on a world of one card
     (NCCL): ``Trainer(mesh=...)``, sharded monitoring, segmentation and
-    the factory's group solve; then the profiling and dataset scripts.
+    the factory's group solve; then the profiling and dataset scripts;
+  - the six examples of ``examples/torch/``.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -47,7 +48,10 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   kernel_pip  the kernel vs its plain version on the inputs the main path
             gave it in request 1
   labels    the segmenter in float32 (TF32 off) vs the JAX package's
-            float32 labels committed in tests/data/torch_smoke_512.npz
+            float32 labels committed in tests/data/torch_smoke_512.npz;
+            then at the serving dtype, bfloat16, vs the JAX package's
+            bfloat16 labels there (agreement, per-class IoU), with the
+            CPU port's labels beside the card's
   image     body mask (both flips), HU window and min-max normalization of
             a 512x512 HU phantom: the card vs the same code on the CPU,
             equal on every pixel; the body mask's time, its labelling and
@@ -122,6 +126,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             8, 3 repeats), eval_ood_fixture at 512 with one seed on the
             trained checkpoint (test_ood_fixture.py's ratchets),
             build_datasets frontal on the series zip (512 images)
+  examples  the six examples of examples/torch/ at the sizes of
+            tests/test_torch_examples.py: results, kernel launches, each
+            one's wall time
 Every phase prints its seconds. Then the kernels line, the card's name
 and power limit, and the result line. Imports nothing of JAX or of the
 JAX package.
@@ -650,16 +657,24 @@ def profiled_request(request) -> dict:
                                 for n, (ms, k) in top])
 
 
-def phase_labels(dev, image, ref_labels):
+def _per_class_iou(got, ref) -> dict:
+    return {int(c): float(((got == c) & (ref == c)).sum()
+                          / max(1, ((got == c) | (ref == c)).sum()))
+            for c in range(4)}
+
+
+def phase_labels(dev, image, ref_labels, ref_bf16):
+    """The segmenter at the serving settings against the JAX package's
+    labels in the fixture: in float32 (TF32 off) and at the serving dtype,
+    bfloat16, where the CPU port's labels are printed beside the card's."""
     from eitx_torch.core.config import ModelConfig
     from eitx_torch.models.yolo.infer import TissueSegmenter
 
     m = ModelConfig()
-    seg = TissueSegmenter(
-        512, weights=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
-        conf=m.axial_conf_per_class, max_det=m.max_detections,
-        tta_fill=m.axial_tta_fill, dtype="float32", device=dev,
-    )
+    kw = dict(weights=os.path.join(WEIGHTS, "tissue_n_512.msgpack"),
+              conf=m.axial_conf_per_class, max_det=m.max_detections,
+              tta_fill=m.axial_tta_fill)
+    seg = TissueSegmenter(512, dtype="float32", device=dev, **kw)
     (labels, _), flags = tf32_flags_of(
         seg.model, lambda: seg.predict_labels(image))
     check(flags and not any(a or b for a, b in flags),
@@ -668,6 +683,22 @@ def phase_labels(dev, image, ref_labels):
     check(agree >= 0.99, f"float32 label agreement {agree}")
     emit("labels", dtype="float32", agreement=agree, forward_passes=len(flags),
          classes=sorted(int(c) for c in np.unique(labels)))
+
+    check(m.dtype == "bfloat16", f"serving dtype {m.dtype}")
+    card, _ = TissueSegmenter(512, dtype=m.dtype, device=dev,
+                              **kw).predict_labels(image)
+    cpu, _ = TissueSegmenter(512, dtype=m.dtype, device="cpu",
+                             **kw).predict_labels(image)
+    agree = float((card == ref_bf16).mean())
+    check(agree >= 0.99, f"bfloat16 label agreement {agree}")
+    check(set(np.unique(card)) == set(np.unique(ref_bf16)),
+          f"bfloat16 classes {np.unique(card)}")
+    emit("labels", dtype=m.dtype, agreement=agree,
+         per_class_iou=_per_class_iou(card, ref_bf16),
+         pixels_that_differ=int((card != ref_bf16).sum()),
+         cpu_port_agreement=float((cpu == ref_bf16).mean()),
+         cpu_port_per_class_iou=_per_class_iou(cpu, ref_bf16),
+         card_vs_cpu_port=float((card == cpu).mean()))
 
 
 def tf32_flags_of(network, run):
@@ -2307,6 +2338,69 @@ def phase_scripts(dev, series):
          build_frontal=dict(images=n, s=time.perf_counter() - t0))
 
 
+# examples/torch/ at the sizes of tests/test_torch_examples.py: each
+# script's main arguments given its working directory
+EXAMPLES = {
+    "building_floorplan": lambda d: (),
+    "spiral_art": lambda d: (),
+    "gear_section": lambda d: (),
+    "eit_monitoring": lambda d: (d, 14.0, 4),
+    "real_slice_demo": lambda d: (d, 14.0, 4),
+    "auto_mode_demo": lambda d: (),
+}
+# meshes the six make: one each, four, one, one a request of two
+EXAMPLE_MESHES = 3 + 4 + 1 + 2
+
+
+def phase_examples(dev) -> int:
+    """The six examples of examples/torch/ on the card, each in a fresh
+    working directory: their results and each one's wall time. Returns
+    the kernel's launches."""
+    import importlib.util
+
+    import torch
+
+    from eitx_torch.mesh import pip
+
+    walls, out = {}, {}
+    cwd = os.getcwd()
+    pip.pip_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            for name, args in EXAMPLES.items():
+                work = os.path.join(tmp, name)
+                os.makedirs(work)
+                os.chdir(work)
+                spec = importlib.util.spec_from_file_location(
+                    f"example_{name}",
+                    os.path.join(ROOT, "examples", "torch", f"{name}.py"))
+                mod = importlib.util.module_from_spec(spec)
+                spec.loader.exec_module(mod)
+                t0 = time.perf_counter()
+                out[name] = mod.main(*args(work), device=str(dev))
+                torch.cuda.synchronize()
+                walls[name] = time.perf_counter() - t0
+                check(any(f.endswith((".png", ".dat")) or f ==
+                          "generation_results" for f in os.listdir(work)),
+                      f"{name} wrote nothing")
+        finally:
+            os.chdir(cwd)
+    launches = pip.pip_launches
+    check(launches == EXAMPLE_MESHES,
+          f"pip kernel launched {launches} times in the examples")
+    for name in ("building_floorplan", "spiral_art", "gear_section"):
+        check(len(out[name]["TRIANGLES"]) > 0, f"{name} mesh")
+    for name in ("eit_monitoring", "real_slice_demo"):
+        v = out[name][0]
+        check(v.shape == (4, 208) and np.isfinite(v).all(), f"{name} {v.shape}")
+    check(out["auto_mode_demo"]["status"] == "success"
+          and len(out["auto_mode_demo"]["tissue_classes_in_answer"]) >= 3,
+          f"auto_mode_demo {out['auto_mode_demo']}")
+    emit("examples", wall_s=walls, pip_launches=launches,
+         auto_mode=out["auto_mode_demo"])
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2345,7 +2439,7 @@ def main() -> int:
     launches, (points, polys) = timed(phase_pipeline, dev, image)
     main_path = compare_pip(points, polys)
     emit("kernel_pip", inputs="main path, request 1", **main_path)
-    timed(phase_labels, dev, image, ref_labels)
+    timed(phase_labels, dev, image, ref_labels, fixture["labels_bf16"])
     timed(phase_image, dev)
     vol, front = timed(series_inputs)
     timed(phase_ribs, dev, front, series_fixture)
@@ -2368,6 +2462,7 @@ def main() -> int:
     del store
     timed(phase_scripts, dev, series)
     del series
+    launches += timed(phase_examples, dev)
 
     print(json.dumps({"kernels": [{
         "name": "pip",

@@ -11,7 +11,10 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from . import rounding
 
 
 def autopad(k: int, d: int = 1) -> int:
@@ -28,7 +31,8 @@ class BatchNorm2d(nn.BatchNorm2d):
     is ``(x - mean) * (rsqrt(var + eps) * weight) + bias``, and the running
     statistics move by ``0.97 * running + 0.03 * batch`` with the *biased*
     batch variance. torch's own update has momentum 0.1 and the unbiased
-    variance. Inference (eval mode) is ``nn.BatchNorm2d``'s."""
+    variance. Inference (eval mode) in float32 is ``nn.BatchNorm2d``'s;
+    in bfloat16 it is flax's, operation by operation (``_eval_bf16``)."""
 
     flax_momentum = 0.97
     # the process group of the ranks that hold the other images of the
@@ -42,6 +46,8 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     def forward(self, x):
         if not self.training:
+            if x.dtype == torch.bfloat16:
+                return self._eval_bf16(x)
             return super().forward(x)
         if self.sync_group is None:
             mean = x.mean((0, 2, 3))
@@ -55,6 +61,18 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+
+    def _eval_bf16(self, x):
+        """flax's ``BatchNorm`` on bfloat16 statistics and input: each
+        operation is computed in float32 and rounded to bfloat16,
+        ``mul = rsqrt(var + eps) * scale``, ``y = (x - mean) * mul + bias``.
+        Every op below is one torch bfloat16 op, which rounds once, except
+        the rsqrt: torch's bfloat16 ``rsqrt`` is not the rounded float32
+        one, so it is taken in float32 and rounded."""
+        var = self.running_var + rounding.constant(self.eps, x.dtype)
+        mul = torch.rsqrt(var.float()).to(x.dtype) * self.weight
+        y = (x - self.running_mean[:, None, None]) * mul[:, None, None]
+        return y + self.bias[:, None, None]
 
     def _global_moments(self, x):
         """Mean and flax's fast variance over every rank's images. The
@@ -74,6 +92,38 @@ class BatchNorm2d(nn.BatchNorm2d):
         return mean, torch.clamp_min(m[c:] - mean * mean, 0.0)
 
 
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d``; in bfloat16 the bias is added to the rounded
+    convolution and rounds again, as flax's ``nn.Conv`` adds it (a fused
+    bias rounds once)."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return self._conv_forward(x, self.weight, None) \
+            + self.bias[:, None, None]
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` (no output size, no output padding); in
+    bfloat16 its bias is added as ``Conv2d``'s is."""
+
+    def forward(self, x):
+        if x.dtype != torch.bfloat16:
+            return super().forward(x)
+        return F.conv_transpose2d(x, self.weight, None, self.stride,
+                                  self.padding, 0, self.groups,
+                                  self.dilation) + self.bias[:, None, None]
+
+
+class SiLU(nn.Module):
+    """``nn.SiLU``, rounded as jax's ``nn.silu`` on bfloat16
+    (``rounding.silu``)."""
+
+    def forward(self, x):
+        return rounding.silu(x)
+
+
 class Conv(nn.Module):
     """Conv2d + BatchNorm (eps 1e-3) + SiLU (ultralytics Conv)."""
 
@@ -83,7 +133,7 @@ class Conv(nn.Module):
         self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, d), dilation=d,
                               groups=g, bias=False)
         self.bn = BatchNorm2d(c2)
-        self.act = nn.SiLU() if act else nn.Identity()
+        self.act = SiLU() if act else nn.Identity()
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
@@ -180,10 +230,11 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x).view(
             B, self.num_heads, self.key_dim * 2 + self.head_dim, N
         ).split([self.key_dim, self.key_dim, self.head_dim], dim=2)
-        attn = (q.transpose(-2, -1) @ k) * self.scale
-        attn = attn.softmax(dim=-1)
-        x = (v @ attn.transpose(-2, -1)).view(B, C, H, W) + self.pe(
-            v.reshape(B, C, H, W))
+        attn = rounding.einsum("bhcn,bhcm->bhnm", q, k) * rounding.constant(
+            self.scale, q.dtype)
+        attn = rounding.softmax(attn, dim=-1)
+        x = rounding.einsum("bhcm,bhnm->bhcn", v, attn)
+        x = x.view(B, C, H, W) + self.pe(v.reshape(B, C, H, W))
         return self.proj(x)
 
 

@@ -12,7 +12,25 @@ detections in the coordinates of the original image.
 Arithmetic type. With ``dtype="bfloat16"`` the two paths compute
 differently in the JAX package, and the port follows each:
   - ``segment_labels`` casts its input to bfloat16 inside the program and
-    runs the network in bfloat16 (eitx/models/yolo/infer.py:193).
+    runs the network in bfloat16 (eitx/models/yolo/infer.py:193). XLA
+    computes each bfloat16 operation in float32 and rounds it, and keeps
+    float32 only where its compiled program does (a row sum reads the
+    float32 ``exp``, a product accumulates in float32). The port takes
+    the same operations in the same order: BatchNorm as flax's five
+    rounded operations (``blocks.BatchNorm2d``), SiLU and the sigmoids as
+    ``x * (1 / (1 + exp(-x)))`` rounded at each step, the softmaxes of the
+    attention and of the box decode as XLA fuses them, products in
+    float32 rounded once, biases added after the convolution rounds, and
+    the mask resize row by row then column by column
+    (``rounding.py``, ``blocks.py``, ``post.py``, ``resize.py``). On the
+    CPU every one of those equals eitx's to the bit. One operation does
+    not: XLA:CPU sums a convolution in float32 strictly in order over
+    (kh, kw, cin), while oneDNN here and cuDNN on the card block the sum,
+    and torch has no convolution that sums in XLA's order. A few elements
+    of a layer round to the neighbouring bfloat16, the difference
+    travels, and the labels of the serving request on the 256 phantom
+    differ on 21 of 65,536 pixels (tests/test_torch_yolo_bf16.py holds
+    them at an agreement of 0.9995).
   - ``detect`` and ``segment`` feed the float32 canvas of ``_prep_batch``
     to variables that were cast to bfloat16. No module of the flax model
     sets a ``dtype``, so every layer promotes float32 x bfloat16 to
@@ -32,7 +50,6 @@ differently in the JAX package, and the port follows each:
 from __future__ import annotations
 
 import copy
-import functools
 import time
 from typing import Optional, Tuple
 
@@ -44,6 +61,7 @@ from ...core.device import resolve_device, to_device
 from ...core.errors import ModelError
 from .checkpoint import flax_to_torch_state, load_state, read_msgpack_checkpoint
 from .model import YoloV11, yolov11_spec
+from .resize import resize_bilinear
 from .post import (
     Detections,
     postprocess_detect,
@@ -61,48 +79,6 @@ def letterbox_params(h: int, w: int, imgsz: int) -> Tuple[float, int, int]:
     return scale, pad_x, pad_y
 
 
-def _triangle_weights(n_in: int, n_out: int) -> np.ndarray:
-    """(n_out, n_in) float32 weights of a bilinear resize of one axis with
-    half-pixel centres, the triangle widened by the shrink factor when
-    the axis shrinks (antialiasing) and each row normalized: the matrix
-    ``jax.image.resize(..., "bilinear")`` builds, in its float32 steps.
-    The sample positions ``(i + 0.5) * inv_scale - 0.5`` are rounded once,
-    as the fused multiply-add of the compiled reference rounds them
-    (two roundings move a weight by 1.5e-5 on a 512-pixel axis)."""
-    f32 = np.float32
-    inv_scale = f32(n_in / n_out)
-    kernel_scale = max(inv_scale, f32(1.0))
-    sample = ((np.arange(n_out, dtype=np.float64) + 0.5)
-              * np.float64(inv_scale) - 0.5).astype(f32)
-    x = np.abs(sample[:, None] - np.arange(n_in, dtype=f32)[None, :])
-    w = np.maximum(f32(0.0), f32(1.0) - x / kernel_scale)
-    total = w.sum(axis=1, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(f32).eps),
-                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
-    return w.astype(f32)
-
-
-@functools.lru_cache(maxsize=64)
-def _axis_weights(n_in: int, n_out: int, device: torch.device,
-                  dtype: torch.dtype) -> torch.Tensor:
-    """``_triangle_weights`` on ``device``, uploaded once per shape: an
-    upload from pageable host memory waits for the work queued before it,
-    so one per call would stall every training step."""
-    return torch.from_numpy(_triangle_weights(n_in, n_out)).to(device, dtype)
-
-
-def _resize_bilinear(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
-    """NCHW bilinear resize as two products with per-axis weight matrices.
-    ``F.interpolate`` computes the same function but rounds its sample
-    positions another way when it antialiases, which shows as 1e-5 on a
-    shrunk 700-pixel axis; the letterbox has to agree with the reference
-    more closely than that."""
-    h, w = x.shape[-2:]
-    wh = _axis_weights(h, nh, x.device, x.dtype)
-    ww = _axis_weights(w, nw, x.device, x.dtype)
-    return torch.einsum("ph,bchw,qw->bcpq", wh, x, ww)
-
-
 def _letterbox(x_u8: torch.Tensor, imgsz: int,
                dtype: torch.dtype) -> torch.Tensor:
     """uint8 (B, H, W) or (B, H, W, 3) on the device -> (B, 3, imgsz,
@@ -116,7 +92,7 @@ def _letterbox(x_u8: torch.Tensor, imgsz: int,
         x = x[..., None].expand(b, h, w, 3)
     x = x.permute(0, 3, 1, 2)  # NCHW
     if (nh, nw) != (h, w):
-        x = _resize_bilinear(x, nh, nw)
+        x = resize_bilinear(x, nh, nw)
     if (nh, nw) != (imgsz, imgsz):
         canvas = torch.full((b, 3, imgsz, imgsz), 114.0 / 255.0,
                             dtype=dtype, device=x.device)

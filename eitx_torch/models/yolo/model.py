@@ -22,7 +22,7 @@ from typing import Dict, Sequence, Tuple
 import torch
 from torch import nn
 
-from .blocks import C2PSA, C3k2, Conv, SPPF
+from .blocks import C2PSA, C3k2, Conv, Conv2d, ConvTranspose2d, SPPF
 
 
 @dataclass(frozen=True)
@@ -73,13 +73,13 @@ class Proto(nn.Module):
     def __init__(self, c1: int, c_: int, nm: int, proto_stride: int):
         super().__init__()
         self.cv1 = Conv(c1, c_, 3)
-        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.upsample = ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
         self.cv2 = Conv(c_, c_, 3)
         c_out = c_
         if proto_stride == 2:
             # second upsample stage: half the channels at 4x the pixels
             c_out = max(c_ // 2, nm)
-            self.upsample2 = nn.ConvTranspose2d(c_, c_out, 2, 2, 0, bias=True)
+            self.upsample2 = ConvTranspose2d(c_, c_out, 2, 2, 0, bias=True)
             self.cv2b = Conv(c_out, c_out, 3)
         self.cv3 = Conv(c_out, nm)
         self.proto_stride = proto_stride
@@ -103,7 +103,7 @@ class Segment(nn.Module):
         self.segment = s.segment
         self.cv2 = nn.ModuleList(
             nn.Sequential(Conv(x, c2, 3), Conv(c2, c2, 3),
-                          nn.Conv2d(c2, 4 * s.reg_max, 1))
+                          Conv2d(c2, 4 * s.reg_max, 1))
             for x in ch
         )
         # cls branch: (DWConv + 1x1) x2 + 1x1 (v11 decoupled-lite head)
@@ -111,7 +111,7 @@ class Segment(nn.Module):
             nn.Sequential(
                 nn.Sequential(Conv(x, x, 3, g=x), Conv(x, c3, 1)),
                 nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
-                nn.Conv2d(c3, s.nc, 1),
+                Conv2d(c3, s.nc, 1),
             )
             for x in ch
         )
@@ -119,7 +119,7 @@ class Segment(nn.Module):
             c4 = max(ch[0] // 4, s.nm)
             self.cv4 = nn.ModuleList(
                 nn.Sequential(Conv(x, c4, 3), Conv(c4, c4, 3),
-                              nn.Conv2d(c4, s.nm, 1))
+                              Conv2d(c4, s.nm, 1))
                 for x in ch
             )
             self.proto = Proto(ch[0], int(s.npr * s.width), s.nm,

@@ -27,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from ...core.fixpoint import fixpoint
+from . import rounding
+from .resize import resize_bilinear
 
 
 class Detections(NamedTuple):
@@ -43,9 +45,10 @@ def _dfl(box_logits: torch.Tensor, reg_max: int) -> torch.Tensor:
     """Distribution-focal decode: (..., 4*reg_max) -> (..., 4) expected
     distances in stride units."""
     shape = box_logits.shape[:-1]
-    p = torch.softmax(box_logits.reshape(*shape, 4, reg_max), dim=-1)
-    bins = torch.arange(reg_max, dtype=p.dtype, device=p.device)
-    return (p * bins).sum(-1)
+    p = rounding.softmax(box_logits.reshape(*shape, 4, reg_max), dim=-1)
+    # the products and their sum stay float32 until the sum rounds
+    bins = torch.arange(reg_max, dtype=torch.float32, device=p.device)
+    return (p.float() * bins).sum(-1).to(p.dtype)
 
 
 def decode_detections(
@@ -70,7 +73,7 @@ def decode_detections(
         x2 = (xs + d[..., 2]) * stride
         y2 = (ys + d[..., 3]) * stride
         all_boxes.append(torch.stack([x1, y1, x2, y2], dim=-1).reshape(B, H * W, 4))
-        probs = torch.sigmoid(cls_map).reshape(B, H * W, -1)
+        probs = rounding.sigmoid(cls_map).reshape(B, H * W, -1)
         all_scores.append(probs.amax(-1))
         all_classes.append(probs.argmax(-1).to(torch.int32))
         if mask_levels is not None:
@@ -159,11 +162,18 @@ def nms_batched(
     )
 
 
-def _inside_boxes(boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
+def _inside_boxes(boxes: torch.Tensor, h: int, w: int,
+                  grid_dtype: torch.dtype) -> torch.Tensor:
     """(K, 4) xyxy on an (h, w) grid -> (K, h, w) bool, pixel centres at
-    integer coordinates, the right and lower edges open."""
-    xs = torch.arange(w, dtype=boxes.dtype, device=boxes.device)[None, None, :]
-    ys = torch.arange(h, dtype=boxes.dtype, device=boxes.device)[None, :, None]
+    integer coordinates, the right and lower edges open. The coordinates
+    are held in ``grid_dtype`` (the proto's), as the reference holds them:
+    in bfloat16 the odd columns above 256 round to even ones."""
+    def grid(n):
+        return torch.arange(n, dtype=torch.float32,
+                            device=boxes.device).to(grid_dtype)
+
+    xs = grid(w)[None, None, :]
+    ys = grid(h)[None, :, None]
     return (
         (xs >= boxes[:, 0][:, None, None])
         & (xs < boxes[:, 2][:, None, None])
@@ -172,11 +182,20 @@ def _inside_boxes(boxes: torch.Tensor, h: int, w: int) -> torch.Tensor:
     )
 
 
-def _upsample_bilinear(m: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
-    """(K, h, w) -> (K, *hw): for upsampling, half-pixel bilinear with edge
-    clamping is what jax.image.resize(..., "bilinear") computes."""
-    return F.interpolate(m[None], size=hw, mode="bilinear",
-                         align_corners=False)[0]
+def _resize_masks(m: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """(K, h, w) -> (K, *hw) as jax.image.resize(..., "bilinear"). An
+    upsample is ``F.interpolate``'s: half-pixel centres and edge clamping
+    give the reference's weights at less cost than the products of
+    ``resize_bilinear``, which a shrink needs (it antialiases). In
+    bfloat16 the rows are resized and rounded, then the columns."""
+    if hw[0] < m.shape[-2] or hw[1] < m.shape[-1]:
+        return resize_bilinear(m, *hw)
+    if m.dtype == torch.float32:
+        return F.interpolate(m[None], size=hw, mode="bilinear",
+                             align_corners=False)[0]
+    m = F.interpolate(m[None], size=(hw[0], m.shape[-1]), mode="bilinear",
+                      align_corners=False)
+    return F.interpolate(m, size=hw, mode="bilinear", align_corners=False)[0]
 
 
 def process_masks(
@@ -191,13 +210,13 @@ def process_masks(
     """
     _, hp, wp = proto.shape
     h, w = out_hw
-    m = torch.sigmoid(torch.einsum("kn,nhw->khw", det.coefs.to(proto.dtype),
-                                   proto))
+    m = rounding.sigmoid(rounding.einsum(
+        "kn,nhw->khw", det.coefs.to(proto.dtype), proto))
     # crop at proto resolution
     sx, sy = wp / w, hp / h
     bx = det.boxes * torch.tensor([sx, sy, sx, sy], dtype=proto.dtype,
                                   device=proto.device)
-    m = _upsample_bilinear(m * _inside_boxes(bx, hp, wp), (h, w))
+    m = _resize_masks(m * _inside_boxes(bx, hp, wp, proto.dtype), (h, w))
     return (m > 0.5) & det.valid[:, None, None]
 
 
@@ -254,14 +273,15 @@ def compose_label_image(
     _, hp, wp = proto.shape
     in_h, in_w = input_hw
     h, w = out_hw
-    m = torch.sigmoid(torch.einsum("kn,nhw->khw", det.coefs.to(proto.dtype),
-                                   proto))
+    m = rounding.sigmoid(rounding.einsum(
+        "kn,nhw->khw", det.coefs.to(proto.dtype), proto))
     if (h, w) != (hp, wp):
-        m = _upsample_bilinear(m, (h, w))
+        m = _resize_masks(m, (h, w))
     sx, sy = w / in_w, h / in_h
     bx = det.boxes * torch.tensor([sx, sy, sx, sy], dtype=proto.dtype,
                                   device=proto.device)
-    hit = (m > 0.5) & _inside_boxes(bx, h, w) & det.valid[:, None, None]
+    hit = ((m > 0.5) & _inside_boxes(bx, h, w, proto.dtype)
+           & det.valid[:, None, None])
     order = torch.argsort(det.scores, stable=True)  # ascending: best last
     k = order.shape[0]
     # the last painted slot covering each pixel wins: rank + 1, 0 = none

@@ -57,7 +57,7 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..models.yolo.blocks import BatchNorm2d
-from ..models.yolo.infer import _resize_bilinear
+from ..models.yolo.resize import resize_bilinear
 from ..models.yolo.model import YoloV11, yolov11_spec
 from ..models.yolo.post import _dfl
 from .losses import ciou, dfl_loss, optax_sigmoid_bce
@@ -586,7 +586,7 @@ class Trainer:
         if T != proto.shape[-1]:
             # bilinear commutes with the linear coef combination, so
             # upsampling the proto once == upsampling every composed mask
-            proto = _resize_bilinear(proto, T, T)
+            proto = resize_bilinear(proto, T, T)
         if cfg.mask_topk > 0:
             K = min(cfg.mask_topk, coefs.shape[1])
             # keep the K best positives (soft = TAL quality)

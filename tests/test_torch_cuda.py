@@ -205,6 +205,29 @@ def test_rib_detector_on_card_equals_cpu(dev, dtype):
                                              image_width=256)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_segmenter_on_card_agrees_with_cpu(dev, dtype):
+    """The trained 512 segmenter at the serving settings on the smoke
+    fixture's slice: the card against the CPU port. cuDNN sums a
+    convolution in another order than oneDNN, so a few elements round to
+    the neighbouring value and the labels are held to the card's bound
+    against eitx (PERF.md section 2: agreement >= 0.99)."""
+    from eitx_torch.core.config import ModelConfig
+    from eitx_torch.models.yolo.infer import TissueSegmenter
+
+    image = np.load(os.path.join(DATA, "torch_smoke_512.npz"))["image"]
+    m = ModelConfig()
+    kw = dict(weights=os.path.join(ROOT, "weights", "tissue_n_512.msgpack"),
+              conf=m.axial_conf_per_class, max_det=m.max_detections,
+              tta_fill=m.axial_tta_fill, dtype=dtype)
+    card = TissueSegmenter(512, device=dev, **kw)
+    assert next(card.model.parameters()).is_cuda
+    got, _ = card.predict_labels(image)
+    want, _ = TissueSegmenter(512, device="cpu", **kw).predict_labels(image)
+    assert (got == want).mean() >= 0.99
+    assert set(np.unique(got)) == set(np.unique(want))
+
+
 def _disk_subject(nb, rings, seed=0, radius=100.0):
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     from meshfix import disk_mesh_with_classes

@@ -10,6 +10,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "eitx_torch")
+EXAMPLES = os.path.join(ROOT, "examples", "torch")
 
 MODULES = [
     "eitx_torch",
@@ -66,10 +67,11 @@ _FORBIDDEN = re.compile(
 
 
 def _sources():
-    for d, _, files in os.walk(PKG):
-        for f in files:
-            if f.endswith(".py"):
-                yield os.path.join(d, f)
+    for top in (PKG, EXAMPLES):
+        for d, _, files in os.walk(top):
+            for f in files:
+                if f.endswith(".py"):
+                    yield os.path.join(d, f)
 
 
 @pytest.mark.parametrize(
@@ -78,6 +80,26 @@ def test_source_has_no_jax_or_eitx_import(path):
     with open(os.path.join(ROOT, path)) as fh:
         text = fh.read()
     assert not _FORBIDDEN.search(text), path
+
+
+def test_examples_leave_jax_and_eitx_out():
+    """Loading every example of examples/torch/ pulls in neither."""
+    names = sorted(f[:-3] for f in os.listdir(EXAMPLES) if f.endswith(".py"))
+    assert len(names) == 6
+    code = (
+        "import importlib.util, os, sys\n"
+        f"for name in {names!r}:\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        f"        name, os.path.join({EXAMPLES!r}, name + '.py'))\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'eitx'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -72,26 +72,60 @@ def test_labels_to_polygons_identical_to_eitx():
     assert labels_to_polygons(lab) == eitx_labels_to_polygons(lab)
 
 
+def _record(monkeypatch, owner, name, calls):
+    """Append every result of ``owner.<name>`` to ``calls``."""
+    inner = getattr(owner, name)
+
+    def recorded(*args, **kwargs):
+        out = inner(*args, **kwargs)
+        calls.append(out)
+        return out
+
+    monkeypatch.setattr(owner, name, recorded)
+
+
 @pytest.fixture(scope="module")
 def answers(tmp_path_factory):
+    """One run_jpg_png request of each package at the serving
+    ModelConfig (bfloat16, per-class conf, 4 flip views) on the 256
+    phantom, with the labels and the mesh of each; then eitx's request
+    again with the port's labels in place of its own."""
+    import eitx.pipeline.modes as eitx_modes
+    import eitx_torch.pipeline.modes as port_modes
+
     b = phantom_batch(1, 256, 12, np.random.default_rng(42))
     img = (b["images"][0, ..., 0] * 255).astype(np.uint8)
-    ref = EitxPipeline(EitxPipelineConfig(
+    ref_pipe = EitxPipeline(EitxPipelineConfig(
         model=EitxModelConfig(axial_weights_256=CKPT_256),
         sim=EitxSimulationConfig(n_points=3),
         results_dir=str(tmp_path_factory.mktemp("eitx")),
-    )).run_jpg_png(img)
-    timer = Timer()
-    got = Pipeline(PipelineConfig(
+    ))
+    got_pipe = Pipeline(PipelineConfig(
         model=ModelConfig(axial_weights_256=CKPT_256),
         sim=SimulationConfig(n_points=3),
         results_dir=str(tmp_path_factory.mktemp("port")),
-    ), device="cpu").run_jpg_png(img, timer=timer)
-    return ref, got, timer
+    ), device="cpu")
+    seen = {k: [] for k in ("ref_labels", "got_labels", "ref_mesh",
+                            "got_mesh")}
+    timer = Timer()
+    with pytest.MonkeyPatch.context() as mp:
+        _record(mp, eitx_modes, "create_mesh", seen["ref_mesh"])
+        _record(mp, port_modes, "create_mesh", seen["got_mesh"])
+        ref_seg, got_seg = (p._segmenter_for(img) for p in (ref_pipe,
+                                                            got_pipe))
+        _record(mp, ref_seg, "predict_labels", seen["ref_labels"])
+        _record(mp, got_seg, "predict_labels", seen["got_labels"])
+        ref = ref_pipe.run_jpg_png(img)
+        got = got_pipe.run_jpg_png(img, timer=timer)
+        port_labels = seen["got_labels"][0]
+        mp.setattr(ref_seg, "predict_labels", lambda image: port_labels)
+        ref_on_port_labels = ref_pipe.run_jpg_png(img)
+    seen["ref_on_port_labels"] = ref_on_port_labels
+    return ref, got, timer, seen
 
 
 def test_run_jpg_png_answer_matches_eitx(answers):
-    ref, got, _ = answers
+    ref, got, _, _ = answers
     assert got["status"] == "success"
     assert sorted(got) == sorted(ref)
     classes = lambda ans: {ln.split()[0] for ln in ans["text_data"][2:]}  # noqa: E731
@@ -99,8 +133,49 @@ def test_run_jpg_png_answer_matches_eitx(answers):
     assert len(classes(got)) >= 2
 
 
+def test_run_jpg_png_at_the_serving_dtype_matches_eitx(answers,
+                                                       record_property):
+    """At the serving dtype the port's labels differ from eitx's on a few
+    pixels: a convolution sums in another order and rounds to the other
+    bfloat16 (tests/test_torch_yolo_bf16.py), and the difference travels
+    to the labels. Everything after the labels is held to eitx: eitx's
+    own request, given the port's labels, writes the port's polygons,
+    mesh and answer image, and its .dat at the bound of the float32 modes
+    below (the two packages' float32 Cholesky factors of one mesh
+    differ, tests/test_torch_fem.py; rtol 2e-4 does not hold there in
+    float32 either: max_rel 7.5e-4 in the zip mode, 7.7e-3 here).
+    Against eitx's own labels the polygons, the mesh and so the .dat
+    move with those pixels (a contour vertex by a few pixels, a few
+    elements change class, the electrodes sit on another boundary), so
+    that comparison is recorded, not bounded."""
+    ref, got, _, seen = answers
+    (ref_labels, _), (got_labels, _) = (seen["ref_labels"][0],
+                                        seen["got_labels"][0])
+    bounded(record_property, "label agreement", (got_labels ==
+                                                 ref_labels).mean(), ">=",
+            0.9995)  # tests/test_torch_yolo_bf16.py: LABEL_AGREEMENT
+    tail = seen["ref_on_port_labels"]
+    assert got["text_data"] == tail["text_data"]
+    # create_mesh returns (image, mesh); eitx's second call is the tail's
+    ref_mesh, got_mesh = seen["ref_mesh"][1][1], seen["got_mesh"][0][1]
+    for key in ("NODES", "TRIANGLES", "CLASS"):
+        assert np.array_equal(np.asarray(got_mesh[key]),
+                              np.asarray(ref_mesh[key])), key
+    assert got["image"] == tail["image"]  # the stage grid, as PNG
+    v_tail = np.loadtxt(tail["saved_file_name"])
+    v = np.loadtxt(got["saved_file_name"])
+    rel = np.abs(v - v_tail) / (np.abs(v_tail) + 1e-9)
+    bounded(record_property, "max_rel", rel.max(), "<", 2e-2)
+    bounded(record_property, "mean_rel", rel.mean(), "<", 2e-3)
+    v_ref = np.loadtxt(ref["saved_file_name"])
+    record_property("polygons equal eitx's own",
+                    got["text_data"] == ref["text_data"])
+    record_property(".dat max difference over eitx's own scale",
+                    float(np.abs(v - v_ref).max() / np.abs(v_ref).max()))
+
+
 def test_run_jpg_png_writes_the_dataset(answers):
-    _, got, timer = answers
+    _, got, timer, _ = answers
     rows = open(got["saved_file_name"]).read().strip().split("\n")
     assert len(rows) == 3 * 12  # n_points * n_spir
     assert all(len(r.split()) == 208 for r in rows)

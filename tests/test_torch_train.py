@@ -26,7 +26,7 @@ from eitx_torch.models.yolo.checkpoint import (
     flax_to_torch_state,
     torch_to_flax_tree,
 )
-from eitx_torch.models.yolo.infer import _resize_bilinear
+from eitx_torch.models.yolo.resize import resize_bilinear
 from eitx_torch.train import TrainConfig, Trainer, TrainState
 from eitx_torch.train import losses as port_losses
 from eitx_torch.train import trainer as port_trainer
@@ -188,7 +188,7 @@ def test_proto_upsample_matches_jax_image_resize(record_property):
     for size in (32, 64):
         want = np.asarray(jax.image.resize(jnp.asarray(p), (2, size, size, 32),
                                            "bilinear"))
-        got = _resize_bilinear(torch.tensor(p).permute(0, 3, 1, 2), size,
+        got = resize_bilinear(torch.tensor(p).permute(0, 3, 1, 2), size,
                                size).permute(0, 2, 3, 1).numpy()
         bounded(record_property, f"resize to {size}", _rel_to_max(got, want),
                 "<=", 1e-6)

@@ -184,10 +184,11 @@ def test_nms_with_tied_scores_matches_eitx(conf):
         assert np.array_equal(g, r), (name, g, r)
 
 
-@pytest.mark.parametrize("out_hw", [(16, 16), (64, 64)])
+@pytest.mark.parametrize("out_hw", [(16, 16), (64, 64), (8, 8)])
 def test_composition_with_tied_scores_matches_eitx(out_hw, record_property):
     """Painting order: lowest score first, and among equal scores the
-    later slot wins (stable argsort)."""
+    later slot wins (stable argsort). (8, 8) shrinks the 16x16 proto,
+    which jax.image.resize antialiases."""
     rng = np.random.default_rng(9)
     k, nm, hp = 6, 4, 16
     proto = rng.normal(0, 1, (hp, hp, nm)).astype(np.float32)
