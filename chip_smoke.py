@@ -27,7 +27,8 @@ its plain PyTorch version:
   - the sharded paths of ``eitx_torch.parallel`` on a world of one card
     (NCCL): ``Trainer(mesh=...)``, sharded monitoring, segmentation and
     the factory's group solve; then the profiling and dataset scripts;
-  - the six examples of ``examples/torch/``.
+  - the six examples of ``examples/torch/``;
+  - bench_torch.py's single-subject FEM and dataset-factory sections.
 
 Phases, one JSON line each; any failure raises and exits non-zero:
   env       torch / CUDA versions, the card, the kernel and native builds,
@@ -129,6 +130,9 @@ Phases, one JSON line each; any failure raises and exits non-zero:
   examples  the six examples of examples/torch/ at the sizes of
             tests/test_torch_examples.py: results, kernel launches, each
             one's wall time
+  bench     bench_torch.main for bench_eit and bench_dataset_factory at
+            their full sizes, in this process: each section's line, every
+            check true, kernel launches
 Every phase prints its seconds. Then the kernels line, the card's name
 and power limit, and the result line. Imports nothing of JAX or of the
 JAX package.
@@ -2401,6 +2405,29 @@ def phase_examples(dev) -> int:
     return launches
 
 
+BENCH_SECTIONS = ("bench_eit", "bench_dataset_factory")
+
+
+def phase_bench(dev) -> int:
+    """bench_torch.py's sections in ``BENCH_SECTIONS`` at their full
+    sizes (the lc-7 thorax at 1200 frames; 4 + 1 phantom slices through
+    the serving pipeline), in this process: the bench prints its own
+    lines and exits 0 only if every section's check holds. Returns the
+    kernel's launches."""
+    import bench_torch
+    from eitx_torch.mesh import pip
+
+    pip.pip_launches = 0
+    rc = bench_torch.main(
+        [arg for name in BENCH_SECTIONS for arg in ("--section", name)]
+        + ["--device", str(dev)])
+    launches = pip.pip_launches
+    check(rc == 0, f"bench_torch exited {rc}: a section's check failed")
+    check(launches > 0, "the bench's sections did not launch the pip kernel")
+    emit("bench", sections=list(BENCH_SECTIONS), rc=rc, pip_launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2463,6 +2490,7 @@ def main() -> int:
     timed(phase_scripts, dev, series)
     del series
     launches += timed(phase_examples, dev)
+    launches += timed(phase_bench, dev)
 
     print(json.dumps({"kernels": [{
         "name": "pip",

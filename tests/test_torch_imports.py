@@ -11,6 +11,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "eitx_torch")
 EXAMPLES = os.path.join(ROOT, "examples", "torch")
+BENCH = os.path.join(ROOT, "bench_torch.py")
 
 MODULES = [
     "eitx_torch",
@@ -72,6 +73,7 @@ def _sources():
             for f in files:
                 if f.endswith(".py"):
                     yield os.path.join(d, f)
+    yield BENCH
 
 
 @pytest.mark.parametrize(
@@ -98,6 +100,22 @@ def test_examples_leave_jax_and_eitx_out():
         "sys.exit(1 if bad else 0)\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_bench_leaves_jax_and_eitx_out():
+    """Importing bench_torch.py, the port's benchmark, pulls in neither."""
+    code = (
+        "import sys\n"
+        "import bench_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'flax', 'eitx'))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
 
