@@ -16,9 +16,11 @@ default arguments, plus ``device`` and ``seed``):
   bench_eit_batch             8 thorax subjects x 1200 frames through
                               build_batch + lowrank_solve_batch, and the
                               whole tail (simulate_eit_monitoring_subjects)
-  bench_segmentation          a random-init YOLOv11-s TissueSegmenter in
-                              bfloat16, 512 uint8 images of 512^2: end to
-                              end (segment_labels), on the device alone
+  bench_segmentation          the untrained YOLOv11-s TissueSegmenter of
+                              the seed (eitx's initial parameters: at
+                              seed 0 bench.py's network) in bfloat16, 512
+                              uint8 images of 512^2: end to end
+                              (segment_labels), on the device alone
                               (_segment_labels_device on a resident
                               input), and the host-to-device link
   bench_serving_segmentation  the checkpoint find_checkpoint("tissue",
@@ -58,7 +60,9 @@ What changes from bench.py, and why:
     bench_eit_batch's subject 0 against its own single-subject solve (rtol
     2e-4, atol 1e-7: tests/test_spectral.py:81); both segmentation
     sections' end-to-end labels equal to the device-only call's on every
-    pixel; every factory subject ``success`` and each subject's ``.dat``
+    pixel, and the untrained segmenter's parameters equal to the JAX
+    package's for seed 0 (tests/data/torch_prng_fixture.npz: per-leaf
+    sums, first elements, the bfloat16 rounding served); every factory subject ``success`` and each subject's ``.dat``
     of every warm pass byte-equal to its cold-pass file; GREIT's images
     against ``R.double() @ dv.double()`` on the host within 1e-5 of scale.
   - ``mfu``: FLOPs over the time over the card's peak. bench.py read
@@ -121,6 +125,8 @@ from eitx_torch.fem.oracle import forward_solve_oracle, monitoring_oracle
 from eitx_torch.fem.protocol import create_protocol
 from eitx_torch.fem.spectral import LowRankSpectralSolver, lowrank_solve_batch
 from eitx_torch.models.yolo.infer import TissueSegmenter
+from eitx_torch.models.yolo.init import flax_init_state
+from eitx_torch.models.yolo.model import yolov11_spec
 from eitx_torch.physio.materials import (
     generate_material_tables,
     tissue_conductivities,
@@ -129,6 +135,13 @@ from eitx_torch.physio.spirometry import conductivity_schedule
 from eitx_torch.pipeline.modes import Pipeline
 from eitx_torch.scripts.profile_setup import thorax_mesh as build_thorax_mesh
 from eitx_torch.train.phantoms import phantom_batch
+
+# tests/torch_prng_check.py reads tests/data/torch_prng_fixture.npz, the JAX
+# package's initial parameters that bench_segmentation's check holds to
+_TESTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+if _TESTS not in sys.path:
+    sys.path.append(_TESTS)
+import torch_prng_check  # noqa: E402
 
 SECTIONS = (
     "bench_eit",
@@ -613,13 +626,40 @@ def _network_flops(seg: TissueSegmenter, x: torch.Tensor) -> float:
     return count["network"]
 
 
+def params_vs_eitx(seg: TissueSegmenter, seed: int):
+    """The untrained segmenter's parameters against the JAX package's
+    network of the same spec and seed (bench.py's ``bench_segmentation``
+    network at seed 0; tests/data/torch_prng_fixture.npz, made from eitx):
+    every leaf's bytes (sha256), float64 sum and sum of squares and first
+    elements (the ulps between them), and whether the served network is
+    exactly those parameters rounded to its dtype. None when the fixture
+    holds no network of this spec and seed."""
+    fx = torch_prng_check.load_fixture()
+    meta = dict(fx["meta"]["segmenter_s"])
+    if meta.pop("seed") != seed or seg.spec != yolov11_spec(
+            meta["variant"], nc=meta["nc"], proto_stride=meta["proto_stride"]):
+        return None
+    state = flax_init_state(seg.spec, seed)
+    out = torch_prng_check.leaf_errors(fx, "segmenter_s", state)
+    served = seg.model.state_dict()
+    out["served_is_rounded"] = all(
+        torch.equal(served[n].cpu(), t.to(served[n].dtype))
+        for n, t in state.items())
+    out["equal"] = bool(out.get("names_equal") and not out["leaves_differ"]
+                        and out["sums_equal"] and out["max_ulp"] == 0
+                        and out["served_is_rounded"])
+    return out
+
+
 def bench_segmentation(batch=512, imgsz=512, repeats=5, device="cuda",
                        seed=0) -> dict:
-    """Slices per second of a random-init YOLOv11-s segmenter (weights
-    from ``seed``), bfloat16, one view: end to end (``segment_labels``:
-    host upload, device, readback, un-letterbox), on the device alone
+    """Slices per second of the untrained YOLOv11-s segmenter of ``seed``
+    (eitx's initial parameters for it: bench.py's network at seed 0),
+    bfloat16, one view: end to end (``segment_labels``: host upload,
+    device, readback, un-letterbox), on the device alone
     (``device_labels`` on a resident batch), and the host-to-device rate
-    of the batch's bytes."""
+    of the batch's bytes. The check also holds the network to the JAX
+    package's (``params_vs_eitx``) where the fixture has it."""
     dev = resolve_device(device)
     seg = TissueSegmenter(imgsz=imgsz, max_det=64, dtype="bfloat16",
                           seed=seed, device=dev)
@@ -639,6 +679,7 @@ def bench_segmentation(batch=512, imgsz=512, repeats=5, device="cuda",
     peaks = card_peaks(dev)
     t_e2e, t_dev = float(np.median(e2e)), float(np.median(dev_times))
     differ = _labels_differ(seg, labels, coarse)
+    vs_eitx = params_vs_eitx(seg, seed)
     line = {
         **rate_stats("segmentation_slices_per_sec_e2e", batch, e2e),
         **rate_stats("segmentation_slices_per_sec_device", batch, dev_times),
@@ -650,9 +691,10 @@ def bench_segmentation(batch=512, imgsz=512, repeats=5, device="cuda",
         "segmentation_mfu_device": mfu(peaks, t_dev, bf16=flops),
         "segmentation_mfu_e2e": mfu(peaks, t_e2e, bf16=flops),
         "labels_differ_px": differ,
+        "params_vs_eitx": vs_eitx,
         "profile": profiled(lambda: seg.segment_labels(imgs, chunk=SEG_CHUNK),
                             dev),
-        "check": differ == 0,
+        "check": differ == 0 and (vs_eitx is None or vs_eitx["equal"]),
     }
     if link:
         ceiling = link["h2d_link_mbytes_per_sec"] * 1e6 / (imgsz * imgsz)

@@ -96,6 +96,11 @@ Phases, one JSON line each; any failure raises and exits non-zero:
             flips and shifts of the 512^2 phantom with YOLO labels traced
             from the fixture's labels: equal to evaluate_dataset of the
             card's labels; images per second
+  prng      (in the train phase) the train phase's trainer and the
+            untrained YOLOv11-s segmenter of seed 0 against the JAX
+            package's initial parameters, and the first batches of a seeded
+            stream against its batches (tests/data/torch_prng_fixture.npz);
+            the stream's draws with no device sync; the host's init time
   train     the segmenter at train_tissue's 512 defaults (batch 8, TAL,
             mask top-K 160 at mask resolution 256) on a store of 32
             phantoms labelled on the card, fed by device_batches: 3 warm-up
@@ -1851,10 +1856,16 @@ TRAIN_RIBS = dict(imgsz=640, nc=1, variant="n", segment=False,
                   max_instances=24, warmup_steps=10, total_steps=100)
 TRAIN_RIBS_BATCH, TRAIN_RIBS_STORE = 4, 16
 # the card's step against the CPU's, same parameters and batch, TF32 off:
-# float32 convolutions in other orders (cuDNN vs oneDNN) through the
-# network and its backward. The bounds sit between that reading and the
-# same step's with TF32 on (the control, read in every run): both are
-# written in PERF.md
+# float32 convolutions and sums in other orders (cuDNN vs oneDNN) through
+# the network and its backward. The bounds sit between those readings and
+# the same step's with TF32 on (the control, read in every run): both are
+# written in PERF.md. The loss's bound is 5e-5: an untrained network's
+# classification loss is a sum over every anchor and class (21,504 terms
+# at 512^2), and on eitx's initial networks the card and the CPU read up
+# to 1.27e-5 apart (this phase's seed 1; 7.9e-6 at most over seeds 1-8 in
+# tests/torch_card_vs_cpu.py), TF32 at least 1.6e-3
+CARD_VS_CPU_LOSS_RTOL = 5e-5
+# the same step twice on the card (the parallel phase's mesh vs meshless)
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_STATS_OF_SCALE = 1e-5
 # a resumed run's second step against the continuing run's, both on the card
@@ -1873,6 +1884,99 @@ def _timed_steps(run, steps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / steps, out
+
+
+def step_card_vs_cpu(cfg, batch: dict, seed: int, dev) -> dict:
+    """One ``train_step`` of ``Trainer(cfg, seed)`` on ``batch`` on the card
+    against the same step on the CPU: the loss components' relative errors
+    and the batch statistics' largest error over their scale, TF32 off;
+    then the same with TF32 on for the card's step (``tf32_control``; the
+    port never runs so)."""
+    import torch
+
+    from eitx_torch.train import Trainer
+
+    cpu = Trainer(cfg, seed=seed, device="cpu")
+    m_cpu = cpu.train_step({k: v.cpu() for k, v in batch.items()})
+    scale = max(float(t.abs().max()) for t in cpu.state.batch_stats.values())
+
+    def against_cpu() -> dict:
+        card = Trainer(cfg, seed=seed, device=dev)
+        m_card = card.train_step(batch)
+        return dict(
+            loss_rel={k: abs(m_card[k] - v) / max(abs(v), 1e-30)
+                      for k, v in m_cpu.items() if abs(v) > 0},
+            batch_stats_of_scale=max(
+                float((card.state.batch_stats[n].cpu() - t).abs().max())
+                for n, t in cpu.state.batch_stats.items()) / scale)
+
+    out = against_cpu()
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out["tf32_control"] = against_cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return out
+
+
+def check_prng(dev, trainer) -> None:
+    """The seeded draws on the card against tests/data/torch_prng_fixture.npz
+    (the JAX package's): the train phase's trainer before its first step
+    and the untrained YOLOv11-s segmenter (every leaf's float64 sums and
+    first elements), and the first batches of a seeded stream with the
+    mosaic (the host's draws, the sha256 of every array). The stream's
+    batches after its first (which uploads the store) run under
+    ``torch.cuda.set_sync_debug_mode("error")`` past the end of a block of
+    draws. Also the host's time to draw each network's parameters anew."""
+    import torch
+    import torch_prng_check as pc
+
+    from eitx_torch.models.yolo import init as yolo_init
+    from eitx_torch.models.yolo.infer import TissueSegmenter
+    from eitx_torch.models.yolo.model import yolov11_spec
+    from eitx_torch.train.data import _DRAW_BLOCK
+
+    fx = pc.load_fixture()
+    check(fx["meta"]["trainer_n"] == dict(TRAIN_SEG, seed=0),
+          "the fixture's trainer is not the train phase's")
+    init_host_s = {}
+    for name, spec in (("n", trainer.model.spec), ("s", yolov11_spec("s"))):
+        yolo_init._flax_init_trees.cache_clear()
+        t0 = time.perf_counter()
+        yolo_init.flax_init_state(spec, 0)
+        init_host_s[name] = time.perf_counter() - t0
+    seg = TissueSegmenter(device=dev, **fx["meta"]["segmenter_s"])
+    params = {
+        "trainer_n": pc.leaf_errors(fx, "trainer_n", {
+            **trainer.state.params, **trainer.state.batch_stats}),
+        "segmenter_s": pc.leaf_errors(fx, "segmenter_s",
+                                      seg.model.state_dict())}
+    del seg
+    steps = fx["meta"]["stream"]["steps"]
+    it = pc.stream(fx, dev)
+    batches = [next(it)]  # the store's upload (a synchronous copy)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for i in range(1, _DRAW_BLOCK + 2):  # into the second block
+            b = next(it)
+            if i < steps:
+                batches.append(b)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    stream = pc.stream_errors(fx, batches)
+    ulp = max(p.get("max_ulp", -1) for p in params.values())
+    emit("prng", ulp_bound=ulp, init_host_s=init_host_s, params=params,
+         stream=dict(stream, steps_without_sync=_DRAW_BLOCK + 1,
+                     draw_block=_DRAW_BLOCK))
+    for net, p in params.items():
+        check(p.get("names_equal") and not p["leaves_differ"]
+              and p["sums_equal"] and p["max_ulp"] == 0,
+              f"{net}'s initial parameters vs the JAX package's: {p}")
+    check(not stream["draws_differ"] and not stream["batches_differ"],
+          f"device_batches vs the JAX package's: {stream}")
 
 
 def phase_train(dev, image):
@@ -1905,6 +2009,7 @@ def phase_train(dev, image):
     check(store["valid"].sum(1).min() >= 4, "a phantom has under 4 targets")
     cfg = TrainConfig(**TRAIN_SEG)
     trainer = Trainer(cfg, seed=0, device=dev)
+    check_prng(dev, trainer)
     stream = device_batches(store, TRAIN_SEG_BATCH, seed=0, device=dev)
     first = None
     for _ in range(3):  # warm-up: cuDNN's choices, the allocator
@@ -1927,39 +2032,18 @@ def phase_train(dev, image):
 
     # one step on the card against the same step on the CPU (two images
     # of a batch: the CPU's step at 512^2 takes seconds an image)
-    batch = {k: v[:2] for k, v in next(stream).items()}
-    cpu = Trainer(cfg, seed=1, device="cpu")
-    m_cpu = cpu.train_step({k: v.cpu() for k, v in batch.items()})
-    scale = max(float(t.abs().max()) for t in cpu.state.batch_stats.values())
-
-    def against_cpu():
-        """The same step on the card: (loss components' relative errors,
-        batch statistics' error of their scale)."""
-        card = Trainer(cfg, seed=1, device=dev)
-        m_card = card.train_step(batch)
-        return ({k: abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30)
-                 for k in m_cpu if abs(m_cpu[k]) > 0},
-                max(float((card.state.batch_stats[n].cpu() - t).abs().max())
-                    for n, t in cpu.state.batch_stats.items()) / scale)
-
-    loss_rel, stats_err = against_cpu()
-    check(max(loss_rel.values()) <= TRAIN_LOSS_RTOL,
+    vs_cpu = step_card_vs_cpu(
+        cfg, {k: v[:2] for k, v in next(stream).items()}, 1, dev)
+    loss_rel, stats_err = vs_cpu["loss_rel"], vs_cpu["batch_stats_of_scale"]
+    check(max(loss_rel.values()) <= CARD_VS_CPU_LOSS_RTOL,
           f"card vs CPU loss {loss_rel}")
     check(stats_err <= TRAIN_STATS_OF_SCALE,
           f"card vs CPU batch_stats {stats_err} of scale")
-    # the control: TF32 on for this step only (the port never runs so);
-    # the bounds must tell it from the float32 step
-    torch.backends.cuda.matmul.allow_tf32 = True
-    torch.backends.cudnn.allow_tf32 = True
-    try:
-        tf32_loss_rel, tf32_stats_err = against_cpu()
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-    check(max(tf32_loss_rel.values()) > TRAIN_LOSS_RTOL
-          or tf32_stats_err > TRAIN_STATS_OF_SCALE,
-          f"the TF32 step passes the bounds: loss {tf32_loss_rel}, "
-          f"batch_stats {tf32_stats_err} of scale")
+    # the bounds must tell the TF32 step from the float32 one
+    tf32 = vs_cpu["tf32_control"]
+    check(max(tf32["loss_rel"].values()) > CARD_VS_CPU_LOSS_RTOL
+          or tf32["batch_stats_of_scale"] > TRAIN_STATS_OF_SCALE,
+          f"the TF32 step passes the bounds: {tf32}")
 
     with tempfile.TemporaryDirectory() as tmp:
         # a .train file continues as the run it came from
@@ -2029,13 +2113,9 @@ def phase_train(dev, image):
         images_per_s=TRAIN_SEG_BATCH * 1e3 / step_ms,
         peak_memory_gib=peak_gib, first_loss=first, last_loss=last,
         profile_5_steps=profile),
-        card_vs_cpu=dict(images=2, loss_rel=loss_rel,
-                         batch_stats_of_scale=stats_err,
-                         loss_rtol_bound=TRAIN_LOSS_RTOL,
-                         stats_bound=TRAIN_STATS_OF_SCALE,
-                         tf32_control=dict(
-                             loss_rel=tf32_loss_rel,
-                             batch_stats_of_scale=tf32_stats_err)),
+        card_vs_cpu=dict(images=2, seed=1, **vs_cpu,
+                         loss_rtol_bound=CARD_VS_CPU_LOSS_RTOL,
+                         stats_bound=TRAIN_STATS_OF_SCALE),
         resume=dict(loss_rel=resume_rel, next_loss_rel=resume2_rel,
                     next_loss_rtol_bound=TRAIN_RESUME_RTOL,
                     params_after_of_scale=p_err,

@@ -285,17 +285,19 @@ def flax_to_torch_state(params: Dict, batch_stats: Dict) -> Dict[str, torch.Tens
 def flax_path(torch_key: str) -> Tuple[Tuple[str, ...], str]:
     """torch state name -> (flax module path, torch leaf name): numeric
     components merge into the preceding name (``m.0`` -> ``m_0``), and
-    ``proto.cvN`` / ``proto.upsample`` merge too (the flax module names
-    are flat there). The JAX package's ``convert._flax_path``, whose
-    inverse ``_torch_module_path`` is."""
+    every module of the proto merges too (``proto.cv1`` -> ``proto_cv1``,
+    ``proto.upsample2`` -> ``proto_upsample2``: eitx's head names them
+    flat, eitx/models/yolo/model.py:108-125). The JAX package's
+    ``convert._flax_path`` merges only the ultralytics proto's
+    ``cv1``-``cv3`` and ``upsample``; ``_torch_module_path`` is the
+    inverse of both."""
     tokens = torch_key.split(".")
     leaf = tokens[-1]
     path: list = []
     for t in tokens[:-1]:
         if t.isdigit() and path:
             path[-1] = f"{path[-1]}_{t}"
-        elif (t in ("cv1", "cv2", "cv3", "upsample") and path
-              and path[-1] == "proto"):
+        elif path and path[-1] == "proto":
             path[-1] = f"proto_{t}"
         else:
             path.append(t)

@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ...core.device import resolve_device, to_device
 from ...core.errors import ModelError
 from .checkpoint import flax_to_torch_state, load_state, read_msgpack_checkpoint
+from .init import flax_init_model
 from .model import YoloV11, yolov11_spec
 from .resize import resize_bilinear
 from .post import (
@@ -188,16 +189,18 @@ class YoloRunner:
                           else max(1, int(tta_fill or 1)))
         self.compute_dtype = (torch.bfloat16 if dtype == "bfloat16"
                               else torch.float32)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
+        if not weights:
+            # eitx's untrained network: flax's initial parameters for the
+            # seed (eitx/models/yolo/infer.py:132-135)
+            model = flax_init_model(self.spec, seed)
+        else:
             model = YoloV11(self.spec)
-        if weights and weights.endswith(".pt"):
-            # an ultralytics archive: the ultralytics names are this
-            # package's module names
-            from .convert import convert_ultralytics_checkpoint
+            if weights.endswith(".pt"):
+                # an ultralytics archive: the ultralytics names are this
+                # package's module names
+                from .convert import convert_ultralytics_checkpoint
 
-            state = convert_ultralytics_checkpoint(weights, model)
-        if state is not None:
+                state = convert_ultralytics_checkpoint(weights, model)
             load_state(model, state)
         # bf16 inference casts weights AND batch statistics
         self.model = model.eval().to(device=self.device,

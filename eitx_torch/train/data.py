@@ -7,10 +7,12 @@ in-repo analogue of the reference's HU-threshold pseudo-labelled training
 sets (scripts/create_femm_dataset hu_ranges at :757-762).
 
 ``device_batches`` (:67-254) uploads the sample store to the device once
-and draws each batch there: a gather, flips and the quadrant mosaic, from
-an explicit ``torch.Generator`` on the device. JAX's threefry stream
-cannot be reproduced, so the port keeps the semantics and the determinism
-(one seed, one stream), not the reference's draws.
+and draws each batch there: a gather, flips and the quadrant mosaic. Its
+random numbers are eitx's: the same threefry key chain and the same
+``randint`` / ``uniform`` draws (``core.prng``), so a seed gives eitx's
+batches element for element. The draws are computed on the host a block
+of steps at a time and uploaded in one copy a block; the gathers stay on
+the device.
 """
 
 from __future__ import annotations
@@ -20,7 +22,11 @@ from typing import Dict
 import numpy as np
 import torch
 
+from ..core import prng
 from ..core.device import resolve_device
+
+# steps whose draws one host pass computes and one upload carries
+_DRAW_BLOCK = 64
 
 
 def synthetic_ct_batch(
@@ -80,6 +86,54 @@ def _desc_order(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=-1, descending=True, stable=True).indices
 
 
+def _stream_draws(key: np.ndarray, steps: int, batch: int, n: int,
+                  i_store: int, augment: bool, flip_h_prob: float,
+                  flip_v_prob: float, mosaic_prob: float):
+    """The random numbers of ``steps`` steps of eitx's ``device_batches``
+    (eitx/train/data.py:207-254, :149, :176) from the stream's ``key``:
+    ``key, sub = split(key)`` a step, ``sub`` split in 6 with a mosaic and
+    in 3 without. Returns the next key and an int32 (steps, W) block, each
+    row one step's draws back to back: the sample indices (batch), the
+    flip and mosaic selections (3 * batch, 0 / 1), the mosaic's sample
+    indices (4 * batch) and its selection scores (batch * 4 * i_store,
+    float32 bits)."""
+    subs = np.empty((steps, 2), np.uint32)
+    for i in range(steps):
+        key, subs[i] = prng.split(key)
+    ks = prng.split(subs, 6 if mosaic_prob else 3)
+    cols = [prng.randint(ks[:, 0], (batch,), 0, n)]
+    flags = np.zeros((steps, 3, batch), np.int32)
+    if augment:
+        flags[:, 0] = prng.uniform(ks[:, 1], (batch,)) < np.float32(flip_h_prob)
+        flags[:, 1] = prng.uniform(ks[:, 2], (batch,)) < np.float32(flip_v_prob)
+    if mosaic_prob:
+        flags[:, 2] = prng.uniform(ks[:, 3], (batch,)) < np.float32(mosaic_prob)
+    cols.append(flags.reshape(steps, -1))
+    if mosaic_prob:
+        cols.append(prng.randint(ks[:, 4], (batch, 4), 0, n).reshape(steps, -1))
+        cols.append(prng.uniform(ks[:, 5], (batch, 4 * i_store))
+                    .reshape(steps, -1).view(np.int32))
+    return key, np.ascontiguousarray(np.concatenate(cols, axis=1))
+
+
+def _named_draws(rows, batch: int) -> dict:
+    """The draws of one or more rows of ``_stream_draws`` ((..., W), numpy
+    or torch) by name: ``idx`` (..., batch); ``flip_h``, ``flip_v`` and
+    ``mosaic`` (..., batch) bool; with the mosaic, ``idx4`` (..., batch, 4)
+    and ``score`` (..., batch, 4 * i_store) float32."""
+    lead = tuple(rows.shape[:-1])
+    flags = rows[..., batch:4 * batch].reshape(lead + (3, batch)) != 0
+    out = {"idx": rows[..., :batch], "flip_h": flags[..., 0, :],
+           "flip_v": flags[..., 1, :], "mosaic": flags[..., 2, :]}
+    if rows.shape[-1] > 4 * batch:
+        f32 = np.float32 if isinstance(rows, np.ndarray) else torch.float32
+        out["idx4"] = rows[..., 4 * batch:8 * batch].reshape(
+            lead + (batch, 4))
+        out["score"] = rows[..., 8 * batch:].view(f32).reshape(
+            lead + (batch, -1))
+    return out
+
+
 def device_batches(
     data: Dict[str, np.ndarray],
     batch: int,
@@ -96,12 +150,12 @@ def device_batches(
     Uploads the pregenerated sample store to ``device`` once and draws
     every training batch there: a gather of ``batch`` samples (uniform,
     with replacement), optionally replaced by quadrant mosaics, then flip
-    augmentation; the host sends nothing per step. Yields dicts of device
-    tensors with the store's keys and dtypes (images u8 (B, S, S, 3),
-    masks u8, boxes f32, classes i32, valid bool); a ``masks`` key is
-    optional (detection-only stores). The flip mirror coordinate is the
-    store's own image size. Resumed runs pass a ``seed`` derived from the
-    restored step, so a continuation draws a fresh stream.
+    augmentation. Yields dicts of device tensors with the store's keys and
+    dtypes (images u8 (B, S, S, 3), masks u8, boxes f32, classes i32,
+    valid bool); a ``masks`` key is optional (detection-only stores). The
+    flip mirror coordinate is the store's own image size. Resumed runs
+    pass a ``seed`` derived from the restored step, so a continuation
+    draws a fresh stream.
 
     ``mosaic_prob`` > 0 replaces that fraction of samples with a quadrant
     mosaic (fixed centre): four store samples downscaled 2x into the four
@@ -111,6 +165,10 @@ def device_batches(
     by random selection among the valid instances (valid first, then a
     uniform score), as the reference does. With ``mosaic_prob=0`` the
     stream draws exactly what it draws without the option.
+
+    The random numbers are eitx's for the same seed (``_stream_draws``),
+    computed on the host ``_DRAW_BLOCK`` steps at a time; a block goes up
+    in one pinned, non-blocking copy, so no step waits for the device.
     """
     dev = resolve_device(device)
     keys = [k for k in ("images", "boxes", "classes", "masks", "valid")
@@ -121,15 +179,16 @@ def device_batches(
     size = float(data["images"].shape[1])
     i_store = int(store["boxes"].shape[1])
     i_out = max(int(mosaic_budget) or i_store, i_store)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
     s2 = data["images"].shape[1] // 2
     # the mosaic's quadrant offsets (x, y, x, y), uploaded once
     offsets = torch.tensor([[0.0, 0.0], [s2, 0.0], [0.0, s2], [s2, s2]],
                            dtype=torch.float32, device=dev).repeat(1, 2)
 
-    def uniform(*shape):
-        return torch.rand(shape, generator=gen, device=dev)
+    def upload(block: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(block)
+        if dev.type == "cuda":
+            return t.pin_memory().to(dev, non_blocking=True)
+        return t.to(dev)
 
     def pad_targets(b):
         """Pad target axes from the store budget to i_out (mosaic runs
@@ -146,9 +205,8 @@ def device_batches(
                 b["masks"], (0, 0, 0, 0, 0, pad))
         return out
 
-    def mosaic():
+    def mosaic(idx4, score):
         """(batch,) quadrant mosaics with random-selection budget."""
-        idx4 = torch.randint(0, n, (batch * 4,), generator=gen, device=dev)
         g = {k: v.index_select(0, idx4) for k, v in store.items()}
         img = g["images"]  # (4B, S, S, C) -> 2x2 mean downscale
         c = img.shape[-1]
@@ -168,7 +226,6 @@ def device_batches(
         cls = g["classes"].reshape(batch, 4 * i_store)
         val = val.reshape(batch, 4 * i_store)
         # random budget selection among valid candidates
-        score = uniform(batch, 4 * i_store)
         score = torch.where(val, score + 1.0, score)  # valid first
         keep = _desc_order(score)[:, :i_out]
 
@@ -201,20 +258,20 @@ def device_batches(
         return sel.reshape((batch,) + (1,) * (ndim - 1))
 
     @torch.no_grad()
-    def draw():
-        idx = torch.randint(0, n, (batch,), generator=gen, device=dev)
-        b = pad_targets({k: v.index_select(0, idx) for k, v in store.items()})
+    def draw(row: torch.Tensor):
+        """One batch from one step's row of draws (``_stream_draws``)."""
+        d = _named_draws(row, batch)
+        sel_h, sel_v = d["flip_h"], d["flip_v"]
+        b = pad_targets({k: v.index_select(0, d["idx"])
+                         for k, v in store.items()})
         if mosaic_prob:
-            mos = mosaic()
-            sel = uniform(batch) < mosaic_prob
-            b = {k: torch.where(per_sample(sel, v.dim()), mos[k], v)
+            mos = mosaic(d["idx4"].reshape(-1), d["score"])
+            b = {k: torch.where(per_sample(d["mosaic"], v.dim()), mos[k], v)
                  for k, v in b.items()}
         if not augment:
             return b
         img, box = b["images"], b["boxes"]
         val = b["valid"][..., None]
-        sel_h = uniform(batch) < flip_h_prob
-        sel_v = uniform(batch) < flip_v_prob
         img = torch.where(per_sample(sel_h, 4), img.flip(2), img)
         box_h = torch.stack([size - box[..., 2], box[..., 1],
                              size - box[..., 0], box[..., 3]], -1)
@@ -232,5 +289,10 @@ def device_batches(
             out["masks"] = msk
         return out
 
+    key = prng.key(seed)
     while True:
-        yield draw()
+        key, block = _stream_draws(key, _DRAW_BLOCK, batch, n, i_store,
+                                   augment, flip_h_prob, flip_v_prob,
+                                   mosaic_prob)
+        for row in upload(block):
+            yield draw(row)

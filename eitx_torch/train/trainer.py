@@ -12,6 +12,9 @@ adamw(warmup_cosine_decay_schedule(0, lr, warmup, total), weight_decay))``
 written out with ``torch._foreach_*`` ops.
 
 Where the port has to take care to compute what the reference computes:
+  - Initial parameters. ``Trainer(cfg, seed)`` starts from flax's
+    ``init(PRNGKey(seed))`` parameters, drawn on the host
+    (``models/yolo/init.py``), the same bits on every device.
   - Layout. Batches arrive NHWC (images (B, S, S, 3), as the stores hold
     them) and are permuted once at the step's entry; the network is NCHW,
     so the proto is (B, nm, Hp, Wp) and the mask product is
@@ -57,8 +60,9 @@ import torch.nn.functional as F
 
 from ..core.device import resolve_device
 from ..models.yolo.blocks import BatchNorm2d
+from ..models.yolo.init import flax_init_model
 from ..models.yolo.resize import resize_bilinear
-from ..models.yolo.model import YoloV11, yolov11_spec
+from ..models.yolo.model import yolov11_spec
 from ..models.yolo.post import _dfl
 from .losses import ciou, dfl_loss, optax_sigmoid_bce
 
@@ -274,23 +278,6 @@ def _take(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return a[torch.arange(a.shape[0], device=a.device)[:, None], idx]
 
 
-def _flax_like_init(model: torch.nn.Module) -> None:
-    """flax's default initialisation (what eitx's ``model.init`` draws
-    from, not its stream): convolution kernels lecun-normal (a normal
-    truncated at 2 sigma, scaled to variance 1 / fan_in), biases 0;
-    BatchNorm scale 1, bias 0. A transposed convolution's fan in is
-    kh * kw * its output channels (flax's ``transpose_kernel`` layout)."""
-    for m in model.modules():
-        if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d)):
-            w = m.weight  # (O, I/g, kh, kw) or, transposed, (I, O, kh, kw)
-            fan_in = w.shape[1] * w.shape[2] * w.shape[3]
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            with torch.no_grad():
-                torch.nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std)
-                if m.bias is not None:
-                    m.bias.zero_()
-
-
 def _bn_buffers(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {n: b for n, b in model.named_buffers()
             if n.endswith(("running_mean", "running_var"))}
@@ -324,11 +311,8 @@ class Trainer:
         self.device = resolve_device(device)
         spec = yolov11_spec(cfg.variant, nc=cfg.nc, segment=cfg.segment,
                             proto_stride=cfg.proto_stride)
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            model = YoloV11(spec)
-            _flax_like_init(model)
-        self.model = model.to(self.device).train()
+        # eitx's initial parameters for the seed, drawn on the host
+        self.model = flax_init_model(spec, seed).to(self.device).train()
         self._data_group = self._model_group = None
         if mesh is not None:
             from ..parallel.shard import shard_params_fsdp
@@ -348,9 +332,10 @@ class Trainer:
         self.lr_at = lr_schedule(cfg)
         self.anchors, self.strides = _anchors_for(cfg.imgsz,
                                                   device=self.device)
-        # constants the step divides by, uploaded once (an upload inside the
-        # step would wait for the work queued before it)
-        self._255 = torch.tensor(255.0, device=self.device)
+        # constants of the step, uploaded once (an upload inside the step
+        # would wait for the work queued before it)
+        self._inv255 = torch.tensor(np.float32(1) / np.float32(255),
+                                    device=self.device)
         self._consts: Dict[Any, torch.Tensor] = {}
 
     def _const(self, values) -> torch.Tensor:
@@ -478,9 +463,10 @@ class Trainer:
         mode (batch statistics; the running statistics move)."""
         images = batch["images"]
         if images.dtype == torch.uint8:
-            # divided by a device tensor: CUDA divides by a host scalar
-            # through its reciprocal
-            images = images.to(torch.float32) / self._255
+            # x / 255 as eitx's compiled step computes it: XLA rewrites a
+            # division by a constant as a product with its float32
+            # reciprocal (a true division differs on half the grey levels)
+            images = images.to(torch.float32) * self._inv255
         return self._loss_from_outputs(
             self.model(images.permute(0, 3, 1, 2)), batch)
 
@@ -490,7 +476,7 @@ class Trainer:
         cfg = self.cfg
         masks = batch["masks"]
         if masks.dtype == torch.uint8:
-            masks = masks.to(torch.float32) / self._255
+            masks = masks.to(torch.float32) * self._inv255
         B = masks.shape[0]
         reg_max = cfg.reg_max
 

@@ -283,3 +283,21 @@ def test_rate_stats_headline_is_the_median():
     got = bench_torch.seconds_stats("s", [3.0, 1.0, 2.0])
     assert got == {"s": 2.0, "s_best": 1.0, "s_min": 1.0, "s_max": 3.0,
                    "s_n": 3}
+
+
+def test_segmentation_network_is_eitx_at_seed_0():
+    """bench_segmentation's check holds its untrained YOLOv11-s to the JAX
+    package's (tests/data/torch_prng_fixture.npz): at seed 0 every leaf
+    and the bfloat16 rounding served are eitx's; another seed or variant
+    has no fixture (None); a served parameter off by one step fails."""
+    seg = TissueSegmenter(imgsz=64, max_det=64, dtype="bfloat16", seed=0,
+                          device="cpu")
+    got = bench_torch.params_vs_eitx(seg, 0)
+    assert got["equal"] and got["max_ulp"] == 0 and got["leaves"] == 470
+    assert bench_torch.params_vs_eitx(seg, 1) is None
+    small = TissueSegmenter(imgsz=64, variant="n", seed=0, device="cpu")
+    assert bench_torch.params_vs_eitx(small, 0) is None
+    with torch.no_grad():
+        w = seg.model.model[0].conv.weight
+        w.view(torch.int16).view(-1)[0] += 1
+    assert not bench_torch.params_vs_eitx(seg, 0)["equal"]

@@ -16,6 +16,7 @@ BENCH = os.path.join(ROOT, "bench_torch.py")
 MODULES = [
     "eitx_torch",
     "eitx_torch.core",
+    "eitx_torch.core.prng",
     "eitx_torch.physio",
     "eitx_torch.fem",
     "eitx_torch.geometry",
@@ -39,6 +40,7 @@ MODULES = [
     "eitx_torch.scripts.train_tissue",
     "eitx_torch.scripts.train_ribs",
     "eitx_torch.models.yolo.convert",
+    "eitx_torch.models.yolo.init",
     "eitx_torch.models.yolo.ptread",
     "eitx_torch.parallel",
     "eitx_torch.parallel.dryrun",

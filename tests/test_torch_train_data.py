@@ -1,7 +1,9 @@
 """The port's training data against eitx's: the same seeds give equal
-phantoms, pseudo-labels and synthetic batches; the device-resident batch
-stream keeps the semantics of tests/test_train.py (its own stream: JAX's
-threefry draws are not reproduced) and its determinism."""
+phantoms, pseudo-labels and synthetic batches, and the device-resident
+batch stream gives eitx's batches for the same seed (the same threefry
+draws, eitx_torch/core/prng.py; tolerance none: every element equal). The
+stream also keeps the semantics of tests/test_train.py and its
+determinism."""
 
 import numpy as np
 import pytest
@@ -269,3 +271,40 @@ def test_device_batches_stream_is_deterministic():
     for x, y in zip(m1, m2):
         _equal_batches(x, y)
         assert x["boxes"].shape == (4, 12, 4)
+
+
+def _u8_store(n, imgsz, max_instances, seed):
+    """synthetic_ct_batch as a training store: uint8 images and masks."""
+    d = jax_data.synthetic_ct_batch(n, imgsz, max_instances, seed=seed)
+    d["images"] = np.round(d["images"] * 255).astype(np.uint8)
+    d["masks"] = np.round(d["masks"] * 255).astype(np.uint8)
+    return d
+
+
+@pytest.mark.parametrize("mosaic", [0.0, 0.5], ids=["plain", "mosaic"])
+@pytest.mark.parametrize("augment", [True, False], ids=["aug", "noaug"])
+def test_device_batches_match_eitx(mosaic, augment):
+    """The first 4 batches of one seed: eitx's stream and the port's, every
+    element of every key equal (gathers, flips, the mosaic's canvas, its
+    budget selection with ties broken as top_k breaks them)."""
+    store = _u8_store(8, 64, 4, seed=3)
+    kw = dict(seed=21, augment=augment, mosaic_prob=mosaic,
+              mosaic_budget=10 if mosaic else 0)
+    want = jax_data.device_batches(store, 4, **kw)
+    got = port_data.device_batches(store, 4, device=CPU, **kw)
+    for _ in range(4):
+        _equal_batches({k: np.asarray(v) for k, v in next(want).items()},
+                       _np(next(got)))
+
+
+def test_device_batches_match_eitx_across_draw_blocks():
+    """The port draws a block of steps at a time on the host: the steps on
+    both sides of a block's end are eitx's too."""
+    store = _u8_store(5, 32, 4, seed=4)
+    kw = dict(seed=8, mosaic_prob=0.5, mosaic_budget=8)
+    want = jax_data.device_batches(store, 2, **kw)
+    got = port_data.device_batches(store, 2, device=CPU, **kw)
+    for step in range(port_data._DRAW_BLOCK + 2):
+        a, b = next(want), next(got)
+        if step >= port_data._DRAW_BLOCK - 2:
+            _equal_batches({k: np.asarray(v) for k, v in a.items()}, _np(b))

@@ -111,6 +111,25 @@ def test_raw_heads_match_eitx_random_stride4_weights(record_property):
     _compare_heads(record_property, fnet, variables, tnet.eval(), x)
 
 
+def test_weightless_segmenter_is_eitx_network(record_property):
+    """``TissueSegmenter(weights=None, seed)`` (YOLOv11-s) is eitx's
+    untrained network of that seed: every parameter equal on every bit,
+    and the raw heads at 64^2 within the float32 bound (2e-5 of scale)."""
+    ref = EitxSegmenter(64, seed=4)
+    got = TissueSegmenter(64, seed=4, device="cpu")
+    assert got.spec.depth == ref.spec.depth and got.spec.width == ref.spec.width
+    want = flax_to_torch_state(
+        jax.device_get(ref.variables["params"]),
+        jax.device_get(ref.variables["batch_stats"]))
+    state = got.model.state_dict()
+    for n, t in want.items():
+        np.testing.assert_array_equal(state[n].numpy().view(np.uint32),
+                                      t.numpy().view(np.uint32), err_msg=n)
+    x = np.random.default_rng(2).normal(0, 1, (1, 64, 64, 3)).astype(
+        np.float32)
+    _compare_heads(record_property, ref.model, ref.variables, got.model, x)
+
+
 def _phantom_256():
     b = phantom_batch(1, 256, 12, np.random.default_rng(42))
     return (b["images"][0, ..., 0] * 255).astype(np.uint8)
