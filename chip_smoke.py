@@ -147,6 +147,7 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -638,10 +639,11 @@ def _busy_ms(events) -> float:
     return busy / 1e3
 
 
-def profiled_request(request) -> dict:
+def profiled_request(request, top: int = 10) -> dict:
     """One more warm request (``request()``) under torch.profiler: its
-    wall time, the device's busy time, the idle share and the ten device
-    kernels with the most time. Runs after the kernel counts are read."""
+    wall time, the device's busy time, the idle share and the ``top``
+    device kernels with the most time. Runs after the kernel counts are
+    read."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -659,11 +661,11 @@ def profiled_request(request) -> dict:
         if e.device_type == torch.autograd.DeviceType.CUDA:
             kernels[e.name][0] += (e.time_range.end - e.time_range.start) / 1e3
             kernels[e.name][1] += 1
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
     return dict(wall_ms=wall_ms, device_busy_ms=busy,
                 idle_share=1.0 - busy / wall_ms,
                 top_kernels_ms=[{"name": n[:80], "ms": ms, "count": k}
-                                for n, (ms, k) in top])
+                                for n, (ms, k) in ranked])
 
 
 def _per_class_iou(got, ref) -> dict:
@@ -1865,11 +1867,11 @@ TRAIN_RIBS_BATCH, TRAIN_RIBS_STORE = 4, 16
 # to 1.27e-5 apart (this phase's seed 1; 7.9e-6 at most over seeds 1-8 in
 # tests/torch_card_vs_cpu.py), TF32 at least 1.6e-3
 CARD_VS_CPU_LOSS_RTOL = 5e-5
-# the same step twice on the card (the parallel phase's mesh vs meshless)
-TRAIN_LOSS_RTOL = 1e-5
 TRAIN_STATS_OF_SCALE = 1e-5
-# a resumed run's second step against the continuing run's, both on the card
-TRAIN_RESUME_RTOL = 1e-5
+# Two runs on the card from one seed, a resumed run against the one it came
+# from, and a (1, 1) mesh against no mesh are held to the bit: every leaf
+# of state (``state_digests``). The port's convolutions run cuDNN's
+# deterministic algorithms only (``eitx_torch.core.device``).
 
 
 def _timed_steps(run, steps: int) -> float:
@@ -1884,6 +1886,42 @@ def _timed_steps(run, steps: int) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / steps, out
+
+
+def state_digests(trainer, ema=None) -> dict:
+    """The sha256 of every leaf of ``trainer``'s state (parameters, batch
+    statistics, Adam's moments) and of the EMA's parameters, by name."""
+    st = trainer.state
+    leaves = {**{f"params/{n}": t for n, t in st.params.items()},
+              **{f"batch_stats/{n}": t for n, t in st.batch_stats.items()},
+              **{f"mu/{n}": t for n, t in st.opt_state.mu.items()},
+              **{f"nu/{n}": t for n, t in st.opt_state.nu.items()},
+              **{f"ema/{n}": t for n, t in (ema or {}).items()}}
+    return {n: hashlib.sha256(t.detach().contiguous().cpu().numpy()
+                              .tobytes()).hexdigest()
+            for n, t in leaves.items()}
+
+
+def digests_differ(a: dict, b: dict) -> list:
+    """Names whose digests differ (or that only one side holds)."""
+    return sorted(n for n in set(a) | set(b) if a.get(n) != b.get(n))
+
+
+def seeded_run_digests(cfg: dict, store, batch: int, warm: int, steps: int,
+                       dev) -> dict:
+    """The train phase's run again: ``Trainer(cfg, seed=0)``, ``warm``
+    steps and then ``steps`` through ``fit`` from a fresh
+    ``device_batches(store, batch, seed=0)``; its ``state_digests``."""
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.data import device_batches
+    from eitx_torch.train.trainer import fit
+
+    trainer = Trainer(TrainConfig(**cfg), seed=0, device=dev)
+    stream = device_batches(store, batch, seed=0, device=dev)
+    for _ in range(warm):
+        trainer.train_step(next(stream))
+    _, ema = fit(trainer, stream, steps, log_every=0)
+    return state_digests(trainer, ema)
 
 
 def step_card_vs_cpu(cfg, batch: dict, seed: int, dev) -> dict:
@@ -1984,9 +2022,11 @@ def phase_train(dev, image):
     the rib detector at 640 through ``Trainer``, ``device_batches`` and
     ``fit`` with the EMA; ms per step, images per second, peak memory, a
     profiled stretch (idle share, top kernels); one step on the card
-    against the same step on the CPU; a ``.train`` round trip that
-    continues as the run it came from; the deployment file labelling the
-    512^2 phantom on the card. Returns the segmenter's phantom store."""
+    against the same step on the CPU; each network's run again from seed
+    0, equal to the first in every leaf of state; a ``.train`` round trip
+    that continues as the run it came from, to the bit; the deployment
+    file labelling the 512^2 phantom on the card. Returns the segmenter's
+    phantom store."""
     import torch
 
     from eitx_torch.models.yolo.checkpoint import (
@@ -2026,6 +2066,9 @@ def phase_train(dev, image):
     check(last["loss"] < first["loss"], f"loss {first['loss']} -> "
           f"{last['loss']} over {steps + 3} steps")
     check(trainer.state.step == steps + 3, "step count")
+    # the same seed gives the same run: a second run of these 3 + 20 steps
+    repro = {"segmenter": (state_digests(trainer, ema), seeded_run_digests(
+        TRAIN_SEG, store, TRAIN_SEG_BATCH, 3, steps, dev))}
     profile = profiled_request(lambda: [
         trainer.train_step(next(stream), device_metrics=True)
         for _ in range(5)])
@@ -2051,31 +2094,23 @@ def phase_train(dev, image):
         save_checkpoint(path, trainer.state)
         resumed = Trainer(cfg, seed=7, device=dev)
         resumed.state = load_checkpoint(path, resumed.state)
-        batch = next(stream)
-        m_res, m_cont = resumed.train_step(batch), trainer.train_step(batch)
+        # the resumed step and the next: every leaf of state equal to the
+        # continuing run's, and so are the metrics
+        resume = []
+        for _ in range(2):
+            batch = next(stream)
+            m_res, m_cont = resumed.train_step(batch), trainer.train_step(
+                batch)
+            resume.append(dict(metrics_equal=m_res == m_cont,
+                               leaves_differ=digests_differ(
+                                   state_digests(resumed),
+                                   state_digests(trainer))))
         check(resumed.state.step == trainer.state.step
               and resumed.opt_state.count == trainer.opt_state.count,
               "the resumed step count")
-        resume_rel = max(abs(m_res[k] - m_cont[k]) / max(abs(m_cont[k]),
-                                                          1e-30)
-                         for k in m_cont)
-        check(resume_rel <= 1e-6, f"resumed step's loss {m_res} vs {m_cont}")
-        # the step's backward is not bit-reproducible on the card (cuDNN's
-        # gradient algorithms and the pooling / upsampling backward add in
-        # no fixed order), and Adam turns a parameter whose gradient is
-        # float32 noise into a +-lr move: the parameters after it differ
-        # there. The step after must still agree.
-        with torch.no_grad():
-            p_err = max(float((a - b).abs().max())
-                        / max(float(b.abs().max()), 1e-30)
-                        for a, b in zip(resumed.state.params.values(),
-                                        trainer.state.params.values()))
-        batch = next(stream)
-        m_res2, m_cont2 = resumed.train_step(batch), trainer.train_step(batch)
-        resume2_rel = max(abs(m_res2[k] - m_cont2[k])
-                          / max(abs(m_cont2[k]), 1e-30) for k in m_cont2)
-        check(resume2_rel <= TRAIN_RESUME_RTOL,
-              f"the step after the resumed one: {m_res2} vs {m_cont2}")
+        check(all(r["metrics_equal"] and not r["leaves_differ"]
+                  for r in resume),
+              f"the resumed run differs from the continuing one: {resume}")
         # the deployment file: EMA parameters, batch statistics, meta
         deploy = os.path.join(tmp, f"tissue_n_{size}.msgpack")
         write_msgpack_checkpoint(deploy, {
@@ -2102,9 +2137,18 @@ def phase_train(dev, image):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rsteps = 10
-    rstep_ms, (rlast, _) = _timed_steps(
+    rstep_ms, (rlast, rema) = _timed_steps(
         lambda: fit(rtrainer, rstream, rsteps, log_every=0), rsteps)
     rpeak = torch.cuda.max_memory_allocated() / 2**30
+    repro["ribs"] = (state_digests(rtrainer, rema), seeded_run_digests(
+        TRAIN_RIBS, ribs, TRAIN_RIBS_BATCH, 2, rsteps, dev))
+    repro = {k: dict(steps=int(s), leaves=len(a),
+                     leaves_differ=digests_differ(a, b))
+             for (k, (a, b)), s in zip(repro.items(), (
+                 steps + 3, rsteps + 2))}
+    emit("train_repro", runs_from_seed=2, **repro)
+    check(not any(r["leaves_differ"] for r in repro.values()),
+          f"two runs from seed 0 differ: {repro}")
     check(all(np.isfinite(v) for v in rlast.values()),
           f"non-finite rib metrics {rlast}")
     emit("train", segmenter=dict(
@@ -2116,10 +2160,7 @@ def phase_train(dev, image):
         card_vs_cpu=dict(images=2, seed=1, **vs_cpu,
                          loss_rtol_bound=CARD_VS_CPU_LOSS_RTOL,
                          stats_bound=TRAIN_STATS_OF_SCALE),
-        resume=dict(loss_rel=resume_rel, next_loss_rel=resume2_rel,
-                    next_loss_rtol_bound=TRAIN_RESUME_RTOL,
-                    params_after_of_scale=p_err,
-                    step=int(trainer.state.step)),
+        resume=dict(steps=resume, step=int(trainer.state.step)),
         deployment=dict(labels_classes=sorted(int(c) for c in
                                               np.unique(labels))),
         ribs=dict(config=TRAIN_RIBS, batch=TRAIN_RIBS_BATCH,
@@ -2153,9 +2194,9 @@ def _dat_bytes(path: str, v, n_points: int, n_repeats: int) -> bytes:
 def phase_parallel(dev, image, store):
     """The sharded paths of eitx_torch.parallel on a world of one card
     (NCCL, a FileStore): Trainer on a (1, 1) mesh against the meshless
-    trainer from one init (losses, batch statistics, ms per step, peak
-    memory); sharded_eit_monitoring, sharded_segment_labels and
-    sharded_group_solve against their single-device calls. At a world of
+    trainer from one init (losses and every leaf of state to the bit, ms
+    per step, peak memory); sharded_eit_monitoring, sharded_segment_labels
+    and sharded_group_solve against their single-device calls. At a world of
     one these equalities check the wiring (a rank's block is the whole
     run); the blocks that the ranks of a world of PARALLEL_WORLD compute,
     run one after another on the card, check that the blocks reassemble
@@ -2204,34 +2245,28 @@ def phase_parallel(dev, image, store):
             for name, tr in (("plain", plain), ("mesh", sharded)):
                 stream = device_batches(store, TRAIN_SEG_BATCH, seed=0,
                                         device=dev)
-                steps = [tr.train_step(next(stream))]
-                first_stats = {n: t.clone()
-                               for n, t in tr.state.batch_stats.items()}
-                steps += [tr.train_step(next(stream))
-                          for _ in range(PARALLEL_STEPS - 1)]
+                steps = [tr.train_step(next(stream))
+                         for _ in range(PARALLEL_STEPS)]
+                digests = state_digests(tr)
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 step_ms, _ = _timed_steps(lambda: [
                     tr.train_step(next(stream), device_metrics=True)
                     for _ in range(PARALLEL_TIMED)], PARALLEL_TIMED)
                 runs[name] = dict(
-                    steps=steps, first_stats=first_stats, step_ms=step_ms,
-                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-            loss_rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
-                           for a, b in zip(runs["mesh"]["steps"],
-                                           runs["plain"]["steps"])
-                           for k in b)
-            # the batch statistics after the first step, as the train phase
-            # holds one step (the parameters after it are not bit-equal on
-            # the card: see the train phase's resume check)
-            want = runs["plain"]["first_stats"]
-            scale = max(float(t.abs().max()) for t in want.values())
-            stats_err = max(float((runs["mesh"]["first_stats"][n] - t).abs(
-            ).max()) for n, t in want.items()) / scale
-            check(loss_rel <= TRAIN_LOSS_RTOL,
-                  f"mesh vs meshless losses {loss_rel}")
-            check(stats_err <= TRAIN_STATS_OF_SCALE,
-                  f"mesh vs meshless batch_stats {stats_err} of scale")
+                    steps=steps, digests=digests, step_ms=step_ms,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    digests_timed=state_digests(tr))
+            # a group of one computes the single-device step: every leaf
+            # of state equal after the compared steps and the timed ones
+            losses_equal = runs["mesh"]["steps"] == runs["plain"]["steps"]
+            mesh_differ = {k: digests_differ(runs["mesh"][k],
+                                             runs["plain"][k])
+                           for k in ("digests", "digests_timed")}
+            check(losses_equal, f"mesh vs meshless losses "
+                  f"{runs['mesh']['steps']} vs {runs['plain']['steps']}")
+            check(not any(mesh_differ.values()),
+                  f"mesh vs meshless state differs: {mesh_differ}")
             train_s = time.perf_counter() - t0
 
             # monitoring: the serving schedule's frames on an lc-7 thorax
@@ -2346,9 +2381,10 @@ def phase_parallel(dev, image, store):
     emit("parallel", backend="nccl", world_size=1,
          train=dict(config=TRAIN_SEG, batch=TRAIN_SEG_BATCH,
                     compared_steps=PARALLEL_STEPS,
-                    loss_rel=loss_rel, loss_rtol_bound=TRAIN_LOSS_RTOL,
-                    batch_stats_of_scale=stats_err,
-                    stats_bound=TRAIN_STATS_OF_SCALE,
+                    losses_equal=losses_equal,
+                    leaves=len(runs["plain"]["digests"]),
+                    leaves_differ_after_compared=mesh_differ["digests"],
+                    leaves_differ_after_timed=mesh_differ["digests_timed"],
                     step_ms_mesh=runs["mesh"]["step_ms"],
                     step_ms_plain=runs["plain"]["step_ms"],
                     peak_gib_mesh=runs["mesh"]["peak_gib"],

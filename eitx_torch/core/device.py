@@ -4,10 +4,16 @@ Every entry point takes ``device`` and defaults to ``"cuda"``. Nothing
 falls back to the CPU when no card is present: the CPU is used only when
 the caller asks for it (the tests pass ``device="cpu"``).
 
-The port's float32 paths never run in TF32: importing this module (every
-entry point does) switches it off for the process, once. A setting that
+The port's float32 paths never run in TF32, and its convolutions run only
+cuDNN's deterministic algorithms: importing this module (every entry point
+does) sets both for the process, once. cuDNN's other gradient algorithms
+add in no fixed order, so two train steps from one state differed on the
+card (``tests/torch_train_repro.py``); with this setting the same seed
+gives the same run, as eitx's does. Serving computes what it computed
+without it: the same labels and ``.dat`` bytes on the card. A setting that
 each block switched on and off would race between the service's
-concurrent requests.
+concurrent requests; ``torch.use_deterministic_algorithms`` is not used:
+it fills every ``torch.empty`` and refuses ops the port runs.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+torch.backends.cudnn.benchmark = False
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -573,12 +573,41 @@ def test_train_step_on_card_equals_cpu(dev):
     assert err <= 1e-4 * scale
 
 
+def _stream(dev):
+    """A seeded device_batches stream of batches of 2 at 64^2."""
+    from eitx_torch.train.data import device_batches, synthetic_ct_batch
+
+    return device_batches(synthetic_ct_batch(8, 64, 4, seed=1), 2, seed=0,
+                          device=dev)
+
+
+def test_train_runs_from_one_seed_are_equal_on_card(dev):
+    """Two trainers from one seed, each given 3 steps of its own stream of
+    one seed, through fit: every parameter, batch statistic, Adam moment
+    and EMA leaf equal to the bit (cuDNN's deterministic algorithms,
+    eitx_torch.core.device)."""
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.trainer import fit
+
+    assert torch.backends.cudnn.deterministic
+    runs = []
+    for _ in range(2):
+        tr = Trainer(TrainConfig(**TRAIN_CFG), seed=0, device=dev)
+        metrics, ema = fit(tr, _stream(dev), 3, log_every=0)
+        runs.append((metrics, chip_smoke.state_digests(tr, ema)))
+    (m_a, a), (m_b, b) = runs
+    assert m_a == m_b and any(n.startswith("ema/") for n in a)
+    assert not chip_smoke.digests_differ(a, b)
+
+
 def test_train_checkpoint_round_trip_on_card(dev, tmp_path):
     """A .train file written on the card loads into a fresh trainer on the
-    card equal on every tensor, and its next step is the continuing
-    run's."""
+    card equal on every tensor, and the resumed run continues the
+    uninterrupted one to the bit: every leaf of state and the metrics
+    equal after the resumed step and after the next."""
     from eitx_torch.train import TrainConfig, Trainer
     from eitx_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from eitx_torch.train.data import synthetic_ct_batch
 
     cfg = TrainConfig(**TRAIN_CFG)
     tr = Trainer(cfg, device=dev)
@@ -594,8 +623,11 @@ def test_train_checkpoint_round_trip_on_card(dev, tmp_path):
     for n, t in tr.state.batch_stats.items():
         assert torch.equal(fresh.state.batch_stats[n], t)
     assert (fresh.state.step, fresh.opt_state.count) == (2, 2)
-    a, b = fresh.train_step(_train_batch()), tr.train_step(_train_batch())
-    assert all(abs(a[k] - b[k]) <= 1e-6 * abs(b[k]) for k in b)
+    for step in range(2):
+        batch = synthetic_ct_batch(2, 64, 4, seed=10 + step)
+        assert fresh.train_step(batch) == tr.train_step(batch)
+        assert not chip_smoke.digests_differ(
+            chip_smoke.state_digests(fresh), chip_smoke.state_digests(tr))
 
 
 @pytest.fixture
@@ -612,11 +644,11 @@ def nccl_world_of_one(dev, tmp_path):
 
 
 def test_mesh_trainer_on_card_equals_meshless(nccl_world_of_one):
-    """A step on a (data, model) = (1, 1) mesh on NCCL against the
-    meshless trainer from the same init and batch: the loss components
-    within rtol 1e-5 (a group of one computes the single-device step; the
-    card's backward is not bit-reproducible, so one step), and the state
-    comes back whole."""
+    """Three steps on a (data, model) = (1, 1) mesh on NCCL against the
+    meshless trainer from the same init and stream: the metrics of every
+    step and every leaf of state after each step equal to the bit (a
+    group of one computes the single-device step), and the state comes
+    back whole."""
     from eitx_torch.parallel import make_device_mesh
     from eitx_torch.train import TrainConfig, Trainer
 
@@ -624,9 +656,14 @@ def test_mesh_trainer_on_card_equals_meshless(nccl_world_of_one):
     mesh = make_device_mesh(("data", "model"), (1, 1))
     plain = Trainer(cfg, device=nccl_world_of_one)
     sharded = Trainer(cfg, mesh=mesh, device=nccl_world_of_one)
-    a, b = sharded.train_step(_train_batch()), plain.train_step(
-        _train_batch())
-    assert all(abs(a[k] - b[k]) <= 1e-5 * abs(b[k]) for k in b), (a, b)
+    s_plain, s_mesh = _stream(nccl_world_of_one), _stream(nccl_world_of_one)
+    for _ in range(3):
+        a, b = sharded.train_step(next(s_mesh)), plain.train_step(
+            next(s_plain))
+        assert a == b
+        assert not chip_smoke.digests_differ(
+            chip_smoke.state_digests(sharded),
+            chip_smoke.state_digests(plain))
     st = sharded.state
     assert all(tuple(st.params[n].shape) == tuple(p.shape)
                for n, p in plain.state.params.items())

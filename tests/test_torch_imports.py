@@ -12,6 +12,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "eitx_torch")
 EXAMPLES = os.path.join(ROOT, "examples", "torch")
 BENCH = os.path.join(ROOT, "bench_torch.py")
+# what runs on the card's machine, which has no JAX: the smoke run and the
+# card tools of tests/
+CARD_SCRIPTS = [os.path.join(ROOT, "chip_smoke.py")] + [
+    os.path.join(ROOT, "tests", f) for f in (
+        "torch_train_repro.py", "torch_train_turns.py", "torch_seg_span.py",
+        "torch_parallel_cards.py", "torch_card_vs_cpu.py",
+        "torch_prng_check.py")]
 
 MODULES = [
     "eitx_torch",
@@ -76,6 +83,7 @@ def _sources():
                 if f.endswith(".py"):
                     yield os.path.join(d, f)
     yield BENCH
+    yield from CARD_SCRIPTS
 
 
 @pytest.mark.parametrize(

@@ -8,6 +8,11 @@ assigner so that every loss term has positives at initialisation). Its
 initial parameters are carried into the port's Trainer through the
 msgpack reader's mapping (HWIO -> OIHW)."""
 
+import json
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -32,6 +37,10 @@ from eitx_torch.train import losses as port_losses
 from eitx_torch.train import trainer as port_trainer
 from eitx_torch.train.checkpoint import load_checkpoint, peek_step
 from torch_bounds import bounded
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+from chip_smoke import digests_differ, state_digests  # noqa: E402
 
 IMG = 64
 CFG = dict(imgsz=IMG, variant="n", max_instances=4, total_steps=10,
@@ -619,3 +628,115 @@ def test_fit_loop_with_ema_and_checkpoint(tmp_path):
     tr.eval_loss(val)
     assert all(torch.equal(a, b) for a, b in
                zip(before, tr.state.batch_stats.values()))
+
+
+# --- the same seed, the same run ---------------------------------------------
+
+# the train phase's assigner and mask selection at the module's size
+REPRO_CFG = dict(CFG, assigner="tal", mask_topk=16)
+
+
+def _three_batches():
+    """The first 3 batches of one seeded ``device_batches`` stream."""
+    from eitx_torch.train.data import device_batches
+    from eitx_torch.train.data import synthetic_ct_batch as port_batch
+
+    store = port_batch(6, IMG, 4, seed=7)
+    store["images"] = np.round(store["images"] * 255).astype(np.uint8)
+    store["masks"] = np.round(store["masks"] * 255).astype(np.uint8)
+    stream = device_batches(store, 2, seed=0, device="cpu")
+    return [next(stream) for _ in range(3)]
+
+
+def test_trainers_from_one_seed_give_one_run():
+    """Two trainers from one seed, each given the same 3 batches of one
+    ``device_batches`` stream through ``fit``: the metrics and every
+    parameter, batch statistic, Adam moment and EMA leaf equal to the bit,
+    as two runs of eitx from one seed are."""
+    from eitx_torch.train.trainer import fit
+
+    batches = _three_batches()
+    runs = []
+    for _ in range(2):
+        tr = Trainer(TrainConfig(**REPRO_CFG), seed=0, device="cpu")
+        metrics, ema = fit(tr, iter(batches), 3, log_every=0)
+        runs.append((metrics, state_digests(tr, ema)))
+    (m_a, a), (m_b, b) = runs
+    assert m_a == m_b
+    assert sum(n.startswith("ema/") for n in a) == len(tr.state.params)
+    assert digests_differ(a, b) == []
+
+
+def test_resumed_run_equals_the_uninterrupted_run(tmp_path):
+    """A run saved after step 2 and resumed from its ``.train`` file into a
+    trainer built from another seed equals the uninterrupted run after
+    step 3, on every leaf of state and on the metrics."""
+    from eitx_torch.train.checkpoint import save_checkpoint
+
+    cfg = TrainConfig(**REPRO_CFG)
+    batches = _three_batches()
+    whole = Trainer(cfg, seed=0, device="cpu")
+    part = Trainer(cfg, seed=0, device="cpu")
+    for b in batches[:2]:
+        whole.train_step(b)
+        part.train_step(b)
+    path = str(tmp_path / "part.train")
+    save_checkpoint(path, part.state)
+    resumed = Trainer(cfg, seed=7, device="cpu")
+    resumed.state = load_checkpoint(path, resumed.state)
+    assert resumed.train_step(batches[2]) == whole.train_step(batches[2])
+    assert (resumed.state.step, resumed.opt_state.count) == (3, 3)
+    assert digests_differ(state_digests(resumed), state_digests(whole)) == []
+
+
+def test_mesh_of_one_equals_meshless_to_the_bit(tmp_path):
+    """Three steps on a (data, model) = (1, 1) gloo mesh against the
+    meshless trainer from the same seed and batches: the metrics of every
+    step and every leaf of state after each equal to the bit (a group of
+    one computes the single-device step; chip_smoke.py holds the NCCL
+    mesh on the card to the same)."""
+    import torch.distributed as dist
+
+    from eitx_torch.parallel import init_distributed, make_device_mesh
+
+    cfg = TrainConfig(**REPRO_CFG)
+    batches = _three_batches()
+    init_distributed(0, 1, str(tmp_path / "store"), "cpu")
+    try:
+        mesh = make_device_mesh(("data", "model"), (1, 1), device_type="cpu")
+        plain = Trainer(cfg, seed=0, device="cpu")
+        sharded = Trainer(cfg, mesh=mesh, seed=0, device="cpu")
+        for b in batches:
+            assert sharded.train_step(b) == plain.train_step(b)
+            assert digests_differ(state_digests(sharded),
+                                  state_digests(plain)) == []
+    finally:
+        dist.destroy_process_group()
+
+
+def test_importing_the_port_sets_deterministic_cudnn_once():
+    """Importing ``eitx_torch`` switches TF32 off and cuDNN to its
+    deterministic algorithms (benchmarking off), once for the process, and
+    leaves torch's process-wide deterministic mode off: that mode fills
+    every ``torch.empty`` (the pip kernel's scratch) and refuses a
+    float32 ``cumsum`` on the card."""
+    code = (
+        "import json, torch\n"
+        "def read():\n"
+        "    b = torch.backends\n"
+        "    return dict(deterministic=b.cudnn.deterministic,\n"
+        "                benchmark=b.cudnn.benchmark,\n"
+        "                cudnn_tf32=b.cudnn.allow_tf32,\n"
+        "                matmul_tf32=b.cuda.matmul.allow_tf32,\n"
+        "                algorithms=torch."
+        "are_deterministic_algorithms_enabled())\n"
+        "before = read()\n"
+        "import eitx_torch\n"
+        "print(json.dumps([before, read()]))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, cwd=ROOT)
+    before, after = json.loads(out.stdout.strip().splitlines()[-1])
+    assert before["deterministic"] is False  # torch's default
+    assert after == dict(deterministic=True, benchmark=False,
+                         cudnn_tf32=False, matmul_tf32=False,
+                         algorithms=False)

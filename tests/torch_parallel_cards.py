@@ -13,7 +13,9 @@ calls on the same inputs:
              step from the same init on the same batch; ms per step of
              each (CUDA events, 5 steps after 2). Then a (4, 1) mesh at a
              global batch of 8 per card against one card at batch 8:
-             images per second.
+             images per second. After each mesh's steps, one sha256 over
+             every leaf's (chip_smoke.state_digests): two runs of the
+             script from the same seed print the same.
   monitoring sharded_eit_monitoring of the serving schedule's 100 frames
              repeated to 1200 (the .dat's rows) on an lc-7 thorax (300 a
              card) against forward_solve_batched on one card: equal, or
@@ -101,6 +103,17 @@ def _barrier():
     dist.barrier()
 
 
+def _state_sha256(trainer) -> str:
+    """One sha256 over the sha256 of every leaf of ``trainer``'s state, on
+    every rank of its mesh (a collective)."""
+    import hashlib
+
+    import chip_smoke as cs
+
+    return hashlib.sha256(json.dumps(sorted(cs.state_digests(
+        trainer).items())).encode()).hexdigest()
+
+
 def _train(out, dev, args, rank, world):
     import torch.distributed as dist
 
@@ -126,6 +139,7 @@ def _train(out, dev, args, rank, world):
     stats = {n: t.clone() for n, t in sharded.state.batch_stats.items()}
     sharded.train_step(next(stream))
     mesh_ms = _ms_per_step(sharded, stream, args.steps, dev)
+    mesh_sha = _state_sha256(sharded)
     if rank == 0:
         one = Trainer(cfg, seed=0, device=dev)
         stream = device_batches(store, batch, seed=0, device=dev)
@@ -144,7 +158,7 @@ def _train(out, dev, args, rank, world):
             grad_median_leaf=float(np.median(leaves)),
             batch_stats_of_scale=max(float((stats[n] - t).abs().max())
                                      for n, t in want_stats.items()) / scale,
-            step_ms_mesh=mesh_ms,
+            step_ms_mesh=mesh_ms, state_sha256=mesh_sha,
             step_ms_one_card=_ms_per_step(one, stream, args.steps, dev))
     dist.barrier()
     del sharded
@@ -157,11 +171,12 @@ def _train(out, dev, args, rank, world):
     for _ in range(2):
         dp.train_step(next(stream))
     dp_ms = _ms_per_step(dp, stream, args.steps, dev)
+    dp_sha = _state_sha256(dp)
     if rank == 0:
         one_ms = out["train_2x2"]["step_ms_one_card"]
         out["train_dp"] = dict(
             mesh=[world, 1], global_batch=batch * world, step_ms=dp_ms,
-            images_per_s=batch * world * 1e3 / dp_ms,
+            images_per_s=batch * world * 1e3 / dp_ms, state_sha256=dp_sha,
             one_card_images_per_s=batch * 1e3 / one_ms)
 
 

@@ -10,12 +10,17 @@ the order given, so parent, change, change, parent compares two trees on
 one card. A tree's process builds the serving ``Pipeline`` (trained
 ``tissue_n_512``, bfloat16, per-class conf, 4 flip views) and sends
 ``--requests`` ``run_jpg_png`` requests of the 512² slice of
-``tests/data/torch_smoke_512.npz``; the first is a warm-up. Prints one
-JSON line a tree (the span of each warm request in ms, their median and
-minimum, the card's name and power limit) and one with the medians.
+``tests/data/torch_smoke_512.npz``; the first is a warm-up. It also
+labels the slice with the serving segmenter in bfloat16 and in float32.
+Prints one JSON line a tree (the span of each warm request in ms, their
+median and minimum, the sha256 of each request's ``.dat`` and of both
+label maps, the bfloat16 labels' agreement with the fixture's
+``labels_bf16``, the card's name and power limit) and one with the
+medians: two trees that serve alike print the same digests.
 """
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -33,27 +38,45 @@ def measure(tree: str, requests: int) -> dict:
 
     from eitx_torch.core.config import ModelConfig, PipelineConfig
     from eitx_torch.core.timing import Timer
+    from eitx_torch.models.yolo.infer import TissueSegmenter
     from eitx_torch.pipeline import Pipeline
 
-    image = np.load(os.path.join(ROOT, "tests", "data",
-                                 "torch_smoke_512.npz"))["image"]
-    spans = []
+    def sha(data: bytes) -> str:
+        return hashlib.sha256(data).hexdigest()
+
+    fixture = np.load(os.path.join(ROOT, "tests", "data",
+                                   "torch_smoke_512.npz"))
+    image = fixture["image"]
+    weights = os.path.join(ROOT, "weights", "tissue_n_512.msgpack")
+    spans, dats = [], []
     with tempfile.TemporaryDirectory() as results:
         pipe = Pipeline(PipelineConfig(
-            model=ModelConfig(axial_weights_512=os.path.join(
-                ROOT, "weights", "tissue_n_512.msgpack")),
+            model=ModelConfig(axial_weights_512=weights),
             results_dir=results), device="cuda")
         for _ in range(requests):
             timer = Timer()
-            pipe.run_jpg_png(image, timer=timer)
+            answer = pipe.run_jpg_png(image, timer=timer)
             torch.cuda.synchronize()
             spans.append(timer.as_dict()["segmentation"] * 1e3)
+            with open(answer["saved_file_name"], "rb") as fh:
+                dats.append(sha(fh.read()))
+    m = ModelConfig()
+    labels = {dtype: TissueSegmenter(
+        512, weights=weights, conf=m.axial_conf_per_class,
+        max_det=m.max_detections, tta_fill=m.axial_tta_fill, dtype=dtype,
+        device="cuda").predict_labels(image)[0]
+        for dtype in ("bfloat16", "float32")}
     warm = sorted(spans[1:])
     import eitx_torch
 
     return dict(tree=os.path.abspath(tree), package=eitx_torch.__file__,
                 segmentation_ms=spans[1:], median_ms=warm[len(warm) // 2],
-                min_ms=warm[0], card=subprocess.run(
+                min_ms=warm[0], dat_sha256=sorted(set(dats)),
+                labels_sha256={k: sha(np.ascontiguousarray(v).tobytes())
+                               for k, v in labels.items()},
+                bf16_agreement=float((labels["bfloat16"]
+                                      == fixture["labels_bf16"]).mean()),
+                card=subprocess.run(
                     ["nvidia-smi", "--query-gpu=name,power.limit",
                      "--format=csv,noheader"], capture_output=True,
                     text=True).stdout.strip())

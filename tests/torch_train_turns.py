@@ -12,7 +12,8 @@ YOLOv11-n segmenter at train_tissue's 512 defaults on a store of 32
 phantoms labelled on the card, ``Trainer(cfg, seed=0)``,
 ``device_batches(store, 8, seed=0)``, 3 warm-up steps, then ``--windows``
 windows of 20 steps through ``fit`` (ms a step between two CUDA events),
-then 5 steps under torch.profiler (wall, device busy time, idle share);
+then 5 steps under torch.profiler (wall, device busy time, idle share,
+the 20 device kernels with the most time);
 the rib detector at 640 (batch 4), 2 warm-up steps and 10 timed. It also
 times building each trainer (host wall, the initial parameters included)
 and the untrained YOLOv11-s segmenter. Prints one JSON line a tree (with
@@ -68,7 +69,7 @@ def measure(tree: str, windows: int, device: str = "cuda") -> dict:
                for _ in range(windows)]
     prof = cs.profiled_request(lambda: [
         trainer.train_step(next(stream), device_metrics=True)
-        for _ in range(5)])
+        for _ in range(5)], top=20)
     ribs = rib_batch(cs.TRAIN_RIBS_STORE, cs.TRAIN_RIBS["imgsz"],
                      cs.TRAIN_RIBS["max_instances"], np.random.default_rng(0))
     rtrainer, rtrainer_s = built(lambda: Trainer(
@@ -84,7 +85,8 @@ def measure(tree: str, windows: int, device: str = "cuda") -> dict:
     return dict(tree=os.path.abspath(tree), package=eitx_torch.__file__,
                 step_ms=step_ms, step_ms_median=float(np.median(step_ms)),
                 profile_5_steps={k: prof[k] for k in (
-                    "wall_ms", "device_busy_ms", "idle_share")},
+                    "wall_ms", "device_busy_ms", "idle_share",
+                    "top_kernels_ms")},
                 ribs_step_ms=rstep_ms, trainer_build_s=trainer_s,
                 ribs_trainer_build_s=rtrainer_s, segmenter_s_build_s=seg_s,
                 card=cs.gpu_name_and_limit())
