@@ -1,0 +1,18 @@
+"""Host milliseconds a subject in ``fem/forward.py`` ``_electrodes``, the
+boundary walk that places the electrodes: the program's span
+``eitx.fem.electrodes`` over its count of subjects ``eitx.fem.subjects``."""
+
+from eitx_torch.core import timing
+
+
+def read(ctx):
+    recorded = getattr(timing, "recorded", None)
+    if recorded is None or not ctx["steps"] or \
+            not ctx["layer"].get("subjects"):
+        return None
+    spans, counters = recorded()
+    s = spans.get("eitx.fem.electrodes")
+    n = counters.get("eitx.fem.subjects")
+    if not s or not s["calls"] or not n or s["host_s"] is None:
+        return None
+    return s["host_s"] / n * 1e3

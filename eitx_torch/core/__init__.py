@@ -15,7 +15,7 @@ from .errors import (
     ModelError,
     SimulationError,
 )
-from .timing import Timer, timed
+from .timing import Timer
 
 __all__ = [
     "ClassMap",
@@ -32,5 +32,4 @@ __all__ = [
     "ModelError",
     "SimulationError",
     "Timer",
-    "timed",
 ]

@@ -25,6 +25,16 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..core.timing import count, span
+
+
+def upload(x: np.ndarray, dtype, device) -> torch.Tensor:
+    """The host array ``x`` as a tensor on ``device``; the bytes that go
+    to a card count as ``eitx.fem.upload_bytes``."""
+    t = torch.as_tensor(x, dtype=dtype, device=device)
+    if t.is_cuda:
+        count("eitx.fem.upload_bytes", t.numel() * t.element_size())
+    return t
 
 
 def scatter_sum_fixed_order(flat: torch.Tensor, vals: torch.Tensor,
@@ -161,49 +171,50 @@ class ClassStiffness:
         device="cuda",
     ) -> "ClassStiffness":
         device = resolve_device(device)
-        nodes = np.asarray(nodes, dtype=np.float64)
-        tris = np.asarray(tris, dtype=np.int64)
-        elem_class = np.asarray(elem_class, dtype=np.int64)
-        n_real = nodes.shape[0]
-        n_pad = _round_up(n_real, max(pad_nodes_to, 1))
-        m_pad = _round_up(tris.shape[0], max(pad_elems_to, 1))
-        if n_pad > n_real:
-            nodes = np.vstack([nodes, np.zeros((n_pad - n_real, 2))])
-        if m_pad > tris.shape[0]:
-            extra = m_pad - tris.shape[0]
-            # degenerate (zero-area) elements on node 0: zero contribution
-            tris = np.vstack([tris, np.zeros((extra, 3), dtype=np.int64)])
-            # class -1 matches no class: its one-hot row is all zero
-            elem_class = np.concatenate(
-                [elem_class, np.full((extra,), -1, dtype=np.int64)]
-            )
+        with span("eitx.fem.assembly", device):
+            nodes = np.asarray(nodes, dtype=np.float64)
+            tris = np.asarray(tris, dtype=np.int64)
+            elem_class = np.asarray(elem_class, dtype=np.int64)
+            n_real = nodes.shape[0]
+            n_pad = _round_up(n_real, max(pad_nodes_to, 1))
+            m_pad = _round_up(tris.shape[0], max(pad_elems_to, 1))
+            if n_pad > n_real:
+                nodes = np.vstack([nodes, np.zeros((n_pad - n_real, 2))])
+            if m_pad > tris.shape[0]:
+                extra = m_pad - tris.shape[0]
+                # degenerate (zero-area) elements on node 0: zero contribution
+                tris = np.vstack([tris, np.zeros((extra, 3), dtype=np.int64)])
+                # class -1 matches no class: its one-hot row is all zero
+                elem_class = np.concatenate(
+                    [elem_class, np.full((extra,), -1, dtype=np.int64)]
+                )
 
-        nodes_t = torch.as_tensor(nodes, dtype=dtype, device=device)
-        tris_t = torch.as_tensor(tris, dtype=torch.int64, device=device)
-        cls_t = torch.as_tensor(elem_class, device=device)
-        onehot = (
-            cls_t[:, None] == torch.arange(n_classes, device=device)[None]
-        ).to(dtype)  # (M, C)
-        k = assemble_class_stiffness(nodes_t, tris_t, onehot, n_pad)
-        diag_fix = np.zeros((n_pad,), dtype=np.float64)
-        if ground_ref:
-            # ground the reference node inside each class matrix
-            # (point-electrode gauge)
-            k[:, ref_node, :] = 0.0
-            k[:, :, ref_node] = 0.0
-            diag_fix[ref_node] = 1.0
-        diag_fix[n_real:] = 1.0
-        return cls(
-            k_class=k,
-            diag_fix=torch.as_tensor(diag_fix, dtype=dtype, device=device),
-            ref_node=ref_node,
-            n_nodes=n_pad,
-            n_real_nodes=n_real,
-            n_classes=n_classes,
-            tris_host=tris,
-            elem_class_host=elem_class,
-            grounded=ground_ref,
-        )
+            nodes_t = upload(nodes, dtype, device)
+            tris_t = upload(tris, torch.int64, device)
+            cls_t = upload(elem_class, None, device)
+            onehot = (
+                cls_t[:, None] == torch.arange(n_classes, device=device)[None]
+            ).to(dtype)  # (M, C)
+            k = assemble_class_stiffness(nodes_t, tris_t, onehot, n_pad)
+            diag_fix = np.zeros((n_pad,), dtype=np.float64)
+            if ground_ref:
+                # ground the reference node inside each class matrix
+                # (point-electrode gauge)
+                k[:, ref_node, :] = 0.0
+                k[:, :, ref_node] = 0.0
+                diag_fix[ref_node] = 1.0
+            diag_fix[n_real:] = 1.0
+            return cls(
+                k_class=k,
+                diag_fix=upload(diag_fix, dtype, device),
+                ref_node=ref_node,
+                n_nodes=n_pad,
+                n_real_nodes=n_real,
+                n_classes=n_classes,
+                tris_host=tris,
+                elem_class_host=elem_class,
+                grounded=ground_ref,
+            )
 
     def system_matrices(self, sigma: torch.Tensor) -> torch.Tensor:
         """K(t) for per-class conductivities sigma (T, C) -> (T, N, N)."""

@@ -24,6 +24,7 @@ import torch
 from ..core.config import ClassMap, SimulationConfig
 from ..core.device import resolve_device
 from ..core.errors import SimulationError
+from ..core.timing import count, span
 from ..physio.materials import get_materials, tissue_conductivities
 from ..physio.spirometry import conductivity_schedule, recorded_schedule
 from .assembly import ClassStiffness
@@ -73,19 +74,21 @@ def prepare_mesh_info(
     mesh_data: Dict, classes: ClassMap = ClassMap()
 ) -> MeshInfo:
     """FEMM-generator mesh dict -> MeshInfo (reference :125-153)."""
-    element = np.asarray(mesh_data["TRIANGLES"], dtype=np.int64)
-    node = np.asarray(mesh_data["NODES"], dtype=np.float64)
-    class_ids = np.asarray(mesh_data["CLASS"], dtype=np.int64)
-    id_to_name = classes.id_to_name()
-    classes_gr: Dict[str, list] = {name: [] for name in id_to_name.values()}
-    for i, cid in enumerate(class_ids):
-        name = id_to_name.get(int(cid))
-        if name is None:
-            raise SimulationError(f"element {i} has unknown class id {cid}")
-        classes_gr[name].append(i)
-    return MeshInfo(
-        element=element, node=node, cond=class_ids.copy(), classes_gr=classes_gr
-    )
+    with span("eitx.fem.mesh_info"):
+        element = np.asarray(mesh_data["TRIANGLES"], dtype=np.int64)
+        node = np.asarray(mesh_data["NODES"], dtype=np.float64)
+        class_ids = np.asarray(mesh_data["CLASS"], dtype=np.int64)
+        id_to_name = classes.id_to_name()
+        classes_gr: Dict[str, list] = {
+            name: [] for name in id_to_name.values()}
+        for i, cid in enumerate(class_ids):
+            name = id_to_name.get(int(cid))
+            if name is None:
+                raise SimulationError(
+                    f"element {i} has unknown class id {cid}")
+            classes_gr[name].append(i)
+        return MeshInfo(element=element, node=node, cond=class_ids.copy(),
+                        classes_gr=classes_gr)
 
 
 def load_mesh_txt(fpath: str, classes: ClassMap = ClassMap()) -> MeshInfo:
@@ -114,15 +117,16 @@ def compact_mesh_nodes(mesh: MeshInfo) -> MeshInfo:
     """Drop nodes unused by any element, reindexing elements
     (reference check_mesh_nodes, model_generator.py:93-116 — O(n^2) loop
     there; vectorized with np.unique here)."""
-    used, inverse = np.unique(mesh.element.ravel(), return_inverse=True)
-    if used.shape[0] == mesh.node.shape[0]:
-        return mesh
-    return MeshInfo(
-        element=inverse.reshape(mesh.element.shape),
-        node=mesh.node[used],
-        cond=mesh.cond,
-        classes_gr=mesh.classes_gr,
-    )
+    with span("eitx.fem.mesh_info"):
+        used, inverse = np.unique(mesh.element.ravel(), return_inverse=True)
+        if used.shape[0] == mesh.node.shape[0]:
+            return mesh
+        return MeshInfo(
+            element=inverse.reshape(mesh.element.shape),
+            node=mesh.node[used],
+            cond=mesh.cond,
+            classes_gr=mesh.classes_gr,
+        )
 
 
 def build_sigma_frames(
@@ -163,28 +167,31 @@ def _dtype(cfg: SimulationConfig) -> torch.dtype:
 
 def _schedule(cfg, classes, materials_location, compat_reference_interp):
     """(T, C) per-class conductivities, the lung column and the protocol."""
-    materials = get_materials(materials_location)
-    _, condspir = _breathing_schedule(cfg, materials, compat_reference_interp)
-    base_cond = tissue_conductivities(
-        materials,
-        cfg.frequency_hz,
-        classes.id_to_name(),
-        compat_reference_interp,
-    )
-    sigma = build_sigma_frames(condspir, base_cond, classes)
-    proto: Protocol = create_protocol(
-        cfg.n_electrodes, cfg.dist_exc, cfg.step_meas, cfg.parser_meas
-    )
-    return sigma, classes.name_to_id()["lung"], proto
+    with span("eitx.fem.schedule"):
+        materials = get_materials(materials_location)
+        _, condspir = _breathing_schedule(cfg, materials,
+                                          compat_reference_interp)
+        base_cond = tissue_conductivities(
+            materials,
+            cfg.frequency_hz,
+            classes.id_to_name(),
+            compat_reference_interp,
+        )
+        sigma = build_sigma_frames(condspir, base_cond, classes)
+        proto: Protocol = create_protocol(
+            cfg.n_electrodes, cfg.dist_exc, cfg.step_meas, cfg.parser_meas
+        )
+        return sigma, classes.name_to_id()["lung"], proto
 
 
 def _electrodes(cfg: SimulationConfig, mesh: MeshInfo) -> np.ndarray:
-    return place_electrodes_equal_spacing(
-        mesh.node,
-        mesh.element,
-        n_electrodes=cfg.n_electrodes,
-        starting_angle=math.radians(cfg.starting_angle_deg),
-    )
+    with span("eitx.fem.electrodes"):
+        return place_electrodes_equal_spacing(
+            mesh.node,
+            mesh.element,
+            n_electrodes=cfg.n_electrodes,
+            starting_angle=math.radians(cfg.starting_angle_deg),
+        )
 
 
 def simulate_eit_monitoring_subjects(
@@ -239,7 +246,9 @@ def simulate_eit_monitoring_subjects(
             voltages = lowrank_solve_batch(LowRankSpectralSolver.build_batch(
                 *args, rank_bucket=cfg.spectral_rank_bucket), alphas)
         for i, v in zip(idxs, voltages):
-            results[i] = v.cpu().numpy().reshape(cfg.n_points, -1)
+            with span("eitx.fem.readback"):
+                results[i] = v.cpu().numpy().reshape(cfg.n_points, -1)
+    count("eitx.fem.subjects", len(results))
     per_subject = (time.time() - t_start) / max(len(css), 1)
     return [(v, per_subject) for v in results]
 
@@ -328,7 +337,9 @@ def simulate_eit_monitoring(
         else:
             v = forward_solve_batched(cs, sigma, el_pos, proto.ex_mat,
                                       proto.meas_mat)
-    v = v.cpu().numpy().reshape(cfg.n_points, -1)
+    with span("eitx.fem.readback"):
+        v = v.cpu().numpy().reshape(cfg.n_points, -1)
+    count("eitx.fem.subjects", 1)
     if save_to_file and filename is not None:
         write_dat(filename, v, n_repeats=cfg.n_spir * cfg.n_minutes)
     return v, time.time() - t0

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from .assembly import ClassStiffness, assemble_stiffness
+from .assembly import ClassStiffness, assemble_stiffness, upload
 
 # frames whose CG has not converged are looked for every this many
 # iterations: the check waits for the device, the iterations in between do
@@ -42,7 +42,7 @@ def _rhs_matrix(el_pos, ex_mat, n_nodes: int, dtype, device) -> torch.Tensor:
     cols = np.arange(n_exc)
     np.add.at(B, (el_pos[ex_mat[:, 0]], cols), 1.0)
     np.add.at(B, (el_pos[ex_mat[:, 1]], cols), -1.0)
-    return torch.as_tensor(B, dtype=dtype, device=device)
+    return upload(B, dtype, device)
 
 
 def _measure(u_el: torch.Tensor, meas_mat: torch.Tensor) -> torch.Tensor:
@@ -56,13 +56,13 @@ def _measure(u_el: torch.Tensor, meas_mat: torch.Tensor) -> torch.Tensor:
 
 
 def _index(x, device) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(x), dtype=torch.int64, device=device)
+    return upload(np.asarray(x), torch.int64, device)
 
 
 def _values(x, dtype, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=dtype)
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return upload(np.asarray(x), dtype, device)
 
 
 def forward_solve(

@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.timing import span
 from .assembly import ClassStiffness
 from .solver import _index, _measure, _rhs_matrix, _values
 
@@ -274,24 +275,32 @@ class LowRankSpectralSolver:
                      ex_mat, meas_mat, setup_alpha0s, alpha0s, rank_bucket):
         """Solvers of a stack: the setup runs at ``setup_alpha0s``, each
         solver keeps its entry of ``alpha0s``."""
-        k_stack, d_stack, ref, el_stack = _stack_subjects(cs_list, el_pos_list)
-        dev, dt = k_stack.device, k_stack.dtype
-        n = k_stack.shape[-1]
-        pairs = [_lung_subspace_indices(cs, lung_class, rank_bucket)
-                 for cs in cs_list]
-        r = max(p[0].shape[0] for p in pairs)
-        idxs = np.stack([np.pad(p[0], (0, r - p[0].shape[0])) for p in pairs])
-        masks = np.stack([np.pad(p[1], (0, r - p[1].shape[0])) for p in pairs])
-        sel = np.stack([_selector(i, m, n) for i, m in zip(idxs, masks)])
-        K_base = _base_matrices(
-            k_stack, torch.diag_embed(d_stack), _values(sigma_base, dt, dev),
-            lung_class, _values(setup_alpha0s, dt, dev))
-        rhs = torch.stack([
-            _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
-        rhs[:, ref, :] = 0.0
-        s2, u0, yq, zq = _lowrank_core(
-            K_base, k_stack[:, lung_class], _index(idxs, dev),
-            _values(masks, dt, dev), _values(sel, dt, dev), rhs, el_stack)
+        with span("eitx.fem.setup.select"):
+            k_stack, d_stack, ref, el_stack = _stack_subjects(cs_list,
+                                                              el_pos_list)
+            dev, dt = k_stack.device, k_stack.dtype
+            n = k_stack.shape[-1]
+            pairs = [_lung_subspace_indices(cs, lung_class, rank_bucket)
+                     for cs in cs_list]
+            r = max(p[0].shape[0] for p in pairs)
+            idxs = np.stack([np.pad(p[0], (0, r - p[0].shape[0]))
+                             for p in pairs])
+            masks = np.stack([np.pad(p[1], (0, r - p[1].shape[0]))
+                              for p in pairs])
+            sel = np.stack([_selector(i, m, n) for i, m in zip(idxs, masks)])
+            K_base = _base_matrices(
+                k_stack, torch.diag_embed(d_stack),
+                _values(sigma_base, dt, dev), lung_class,
+                _values(setup_alpha0s, dt, dev))
+            rhs = torch.stack([
+                _rhs_matrix(e, ex_mat, n, dt, dev) for e in el_pos_list])
+            rhs[:, ref, :] = 0.0
+            idx_t, mask_t = _index(idxs, dev), _values(masks, dt, dev)
+            sel_t = _values(sel, dt, dev)
+        with span("eitx.fem.setup.factor", dev):
+            s2, u0, yq, zq = _lowrank_core(
+                K_base, k_stack[:, lung_class], idx_t, mask_t, sel_t, rhs,
+                el_stack)
         meas = _index(meas_mat, dev)
         return [cls(s2=s2[b], u0=u0[b], yq=yq[b], zq=zq[b],
                     alpha0=float(alpha0s[b]), meas_mat=meas)
@@ -319,18 +328,19 @@ def lowrank_solve_batch(solvers, lung_alphas):
                 "lowrank_solve_batch requires same-bucket solvers "
                 f"(meas_mat {tuple(s.meas_mat.shape)} != {tuple(m0.shape)})"
             )
-    s2 = torch.stack([s.s2 for s in solvers])
-    dt, dev = s2.dtype, s2.device
-    out = _lowrank_solve(
-        s2,
-        torch.stack([s.u0 for s in solvers]),
-        torch.stack([s.yq for s in solvers]),
-        torch.stack([s.zq for s in solvers]),
-        _values(lung_alphas, dt, dev),
-        torch.tensor([s.alpha0 for s in solvers], dtype=dt, device=dev),
-        m0,
-    )
-    return list(out.unbind(0))
+    with span("eitx.fem.solve", m0.device):
+        s2 = torch.stack([s.s2 for s in solvers])
+        dt, dev = s2.dtype, s2.device
+        out = _lowrank_solve(
+            s2,
+            torch.stack([s.u0 for s in solvers]),
+            torch.stack([s.yq for s in solvers]),
+            torch.stack([s.zq for s in solvers]),
+            _values(lung_alphas, dt, dev),
+            torch.tensor([s.alpha0 for s in solvers], dtype=dt, device=dev),
+            m0,
+        )
+        return list(out.unbind(0))
 
 
 def _lung_subspace_indices(

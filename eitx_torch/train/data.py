@@ -24,6 +24,7 @@ import torch
 
 from ..core import prng
 from ..core.device import resolve_device
+from ..core.timing import span
 
 # steps whose draws one host pass computes and one upload carries
 _DRAW_BLOCK = 64
@@ -289,10 +290,13 @@ def device_batches(
             out["masks"] = msk
         return out
 
-    key = prng.key(seed)
+    key, rows = prng.key(seed), []
     while True:
-        key, block = _stream_draws(key, _DRAW_BLOCK, batch, n, i_store,
-                                   augment, flip_h_prob, flip_v_prob,
-                                   mosaic_prob)
-        for row in upload(block):
-            yield draw(row)
+        with span("eitx.train.batch"):
+            if not rows:
+                key, block = _stream_draws(key, _DRAW_BLOCK, batch, n,
+                                           i_store, augment, flip_h_prob,
+                                           flip_v_prob, mosaic_prob)
+                rows = list(upload(block))
+            out = draw(rows.pop(0))
+        yield out

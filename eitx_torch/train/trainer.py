@@ -59,6 +59,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.device import resolve_device
+from ..core.timing import span
 from ..models.yolo.blocks import BatchNorm2d
 from ..models.yolo.init import flax_init_model
 from ..models.yolo.resize import resize_bilinear
@@ -224,25 +225,27 @@ def _assign_tal(anchors, pred_boxes, cls_logits, boxes, classes, valid,
     pred_boxes (..., A, 4), cls_logits (..., A, nc), boxes (..., I, 4),
     classes (..., I), valid (..., I) -> ((..., A) int64 target index or
     -1, (..., A, I) align)."""
-    ax, ay = anchors[:, 0][:, None], anchors[:, 1][:, None]
-    x1, y1, x2, y2 = _box_parts(boxes)
-    inside = (ax >= x1) & (ax <= x2) & (ay >= y1) & (ay <= y2)  # (..., A, I)
-    ok = inside & (valid[..., None, :] > 0)
-    iou_ai = _pairwise_iou(pred_boxes, boxes)
-    score = torch.sigmoid(cls_logits)
-    cls_idx = classes.to(torch.int64)[..., None, :].expand(ok.shape)
-    score_ai = torch.gather(score, -1, cls_idx)
-    iou0 = torch.maximum(iou_ai, torch.zeros_like(iou_ai))
-    align = torch.where(ok, (score_ai ** alpha) * (iou0 ** beta), 0.0)
-    # per-target top-k candidate threshold
-    k = min(topk, align.shape[-2])
-    kth = torch.sort(align, dim=-2).values[..., -k, :]  # (..., I)
-    kth = torch.maximum(kth, torch.full_like(kth, 1e-12))
-    cand = ok & (align >= kth[..., None, :]) & (align > 0)
-    align_c = torch.where(cand, align, -1.0)
-    best = align_c.argmax(-1)
-    has = align_c.amax(-1) > 0
-    return torch.where(has, best, -1), align
+    with span("eitx.train.assign", anchors.device):
+        ax, ay = anchors[:, 0][:, None], anchors[:, 1][:, None]
+        x1, y1, x2, y2 = _box_parts(boxes)
+        # inside: (..., A, I)
+        inside = (ax >= x1) & (ax <= x2) & (ay >= y1) & (ay <= y2)
+        ok = inside & (valid[..., None, :] > 0)
+        iou_ai = _pairwise_iou(pred_boxes, boxes)
+        score = torch.sigmoid(cls_logits)
+        cls_idx = classes.to(torch.int64)[..., None, :].expand(ok.shape)
+        score_ai = torch.gather(score, -1, cls_idx)
+        iou0 = torch.maximum(iou_ai, torch.zeros_like(iou_ai))
+        align = torch.where(ok, (score_ai ** alpha) * (iou0 ** beta), 0.0)
+        # per-target top-k candidate threshold
+        k = min(topk, align.shape[-2])
+        kth = torch.sort(align, dim=-2).values[..., -k, :]  # (..., I)
+        kth = torch.maximum(kth, torch.full_like(kth, 1e-12))
+        cand = ok & (align >= kth[..., None, :]) & (align > 0)
+        align_c = torch.where(cand, align, -1.0)
+        best = align_c.argmax(-1)
+        has = align_c.amax(-1) > 0
+        return torch.where(has, best, -1), align
 
 
 def clip_by_global_norm(grads: List[torch.Tensor], max_norm: float,
@@ -467,96 +470,99 @@ class Trainer:
             # division by a constant as a product with its float32
             # reciprocal (a true division differs on half the grey levels)
             images = images.to(torch.float32) * self._inv255
-        return self._loss_from_outputs(
-            self.model(images.permute(0, 3, 1, 2)), batch)
+        with span("eitx.train.forward", self.device):
+            out = self.model(images.permute(0, 3, 1, 2))
+        return self._loss_from_outputs(out, batch)
 
     def _loss_from_outputs(self, out: Dict, batch: Dict[str, torch.Tensor]):
         """(loss, metrics) of the network's raw NCHW outputs ``out``
         against the batch's targets."""
-        cfg = self.cfg
-        masks = batch["masks"]
-        if masks.dtype == torch.uint8:
-            masks = masks.to(torch.float32) * self._inv255
-        B = masks.shape[0]
-        reg_max = cfg.reg_max
+        with span("eitx.train.loss", self.device):
+            cfg = self.cfg
+            masks = batch["masks"]
+            if masks.dtype == torch.uint8:
+                masks = masks.to(torch.float32) * self._inv255
+            B = masks.shape[0]
+            reg_max = cfg.reg_max
 
-        def flat(m):  # (B, C, H, W) -> (B, H * W, C), the anchors' order
-            return m.permute(0, 2, 3, 1).reshape(B, -1, m.shape[1])
+            def flat(m):  # (B, C, H, W) -> (B, H * W, C), the anchors' order
+                return m.permute(0, 2, 3, 1).reshape(B, -1, m.shape[1])
 
-        box_logits = torch.cat([flat(bm) for bm, _ in out["levels"]], 1)
-        cls_logits = torch.cat([flat(cm) for _, cm in out["levels"]], 1)
-        anchors, strides = self.anchors, self.strides
-        boxes = batch["boxes"]
-        classes = batch["classes"].to(torch.int64)
-        valid = batch["valid"]
+            box_logits = torch.cat([flat(bm) for bm, _ in out["levels"]], 1)
+            cls_logits = torch.cat([flat(cm) for _, cm in out["levels"]], 1)
+            anchors, strides = self.anchors, self.strides
+            boxes = batch["boxes"]
+            classes = batch["classes"].to(torch.int64)
+            valid = batch["valid"]
 
-        # decode predicted boxes first (TAL scores them)
-        d = _dfl(box_logits, reg_max) * strides[:, None]  # (B, A, 4) px
-        pb = torch.stack([anchors[:, 0] - d[..., 0], anchors[:, 1] - d[..., 1],
-                          anchors[:, 0] + d[..., 2], anchors[:, 1] + d[..., 3]],
-                         -1)
-        if cfg.assigner == "tal":
-            pb_sg = pb.detach()
-            assigned, align = _assign_tal(
-                anchors, pb_sg, cls_logits.detach(), boxes, classes, valid,
-                cfg.tal_topk, cfg.tal_alpha, cfg.tal_beta)
-        else:
-            assigned = _assign(anchors, strides, boxes, valid,
-                               cfg.center_radius)
-            align = None
-        pos = assigned >= 0
-        tgt = assigned.clamp_min(0)
-        tboxes = _take(boxes, tgt)  # (B, A, 4)
-        tcls = torch.gather(classes, 1, tgt)
-        n_pos = pos.sum(1).clamp_min(1)
+            # decode predicted boxes first (TAL scores them)
+            d = _dfl(box_logits, reg_max) * strides[:, None]  # (B, A, 4) px
+            pb = torch.stack([anchors[:, 0] - d[..., 0],
+                              anchors[:, 1] - d[..., 1],
+                              anchors[:, 0] + d[..., 2],
+                              anchors[:, 1] + d[..., 3]], -1)
+            if cfg.assigner == "tal":
+                pb_sg = pb.detach()
+                assigned, align = _assign_tal(
+                    anchors, pb_sg, cls_logits.detach(), boxes, classes, valid,
+                    cfg.tal_topk, cfg.tal_alpha, cfg.tal_beta)
+            else:
+                assigned = _assign(anchors, strides, boxes, valid,
+                                   cfg.center_radius)
+                align = None
+            pos = assigned >= 0
+            tgt = assigned.clamp_min(0)
+            tboxes = _take(boxes, tgt)  # (B, A, 4)
+            tcls = torch.gather(classes, 1, tgt)
+            n_pos = pos.sum(1).clamp_min(1)
 
-        if align is None:
-            soft = pos.to(cls_logits.dtype)  # hard 1.0 targets
-        else:
-            # ultralytics normalization: per-target align scaled so its
-            # best anchor's target equals the target's best IoU
-            iou_ai = _pairwise_iou(pb_sg, boxes)
-            max_align = align.amax(1)  # (B, I)
-            iou0 = torch.maximum(iou_ai, torch.zeros_like(iou_ai))
-            max_iou = iou0.amax(1)
-            scale = max_iou / torch.maximum(max_align,
-                                            torch.full_like(max_align, 1e-9))
-            norm = align * scale[:, None, :]
-            soft = torch.gather(norm, 2, tgt[..., None])[..., 0] * pos
+            if align is None:
+                soft = pos.to(cls_logits.dtype)  # hard 1.0 targets
+            else:
+                # ultralytics normalization: per-target align scaled so its
+                # best anchor's target equals the target's best IoU
+                iou_ai = _pairwise_iou(pb_sg, boxes)
+                max_align = align.amax(1)  # (B, I)
+                iou0 = torch.maximum(iou_ai, torch.zeros_like(iou_ai))
+                max_iou = iou0.amax(1)
+                scale = max_iou / torch.maximum(
+                    max_align, torch.full_like(max_align, 1e-9))
+                norm = align * scale[:, None, :]
+                soft = torch.gather(norm, 2, tgt[..., None])[..., 0] * pos
 
-        # classification BCE over all anchors (soft targets under TAL)
-        onehot = F.one_hot(tcls, cfg.nc).to(soft.dtype) * soft[..., None]
-        soft_sum = soft.sum(1)
-        l_cls = optax_sigmoid_bce(cls_logits, onehot).sum((1, 2)) \
-            / torch.maximum(soft_sum, torch.ones_like(soft_sum))
+            # classification BCE over all anchors (soft targets under TAL)
+            onehot = F.one_hot(tcls, cfg.nc).to(soft.dtype) * soft[..., None]
+            soft_sum = soft.sum(1)
+            l_cls = optax_sigmoid_bce(cls_logits, onehot).sum((1, 2)) \
+                / torch.maximum(soft_sum, torch.ones_like(soft_sum))
 
-        # box: CIoU on positives, weighted by the soft target score
-        w_box = torch.where(pos, torch.maximum(soft, torch.full_like(
-            soft, 1e-3)), 0.0)
-        w_sum = w_box.sum(1)
-        l_box = ((1.0 - ciou(pb, tboxes)) * w_box).sum(1) \
-            / torch.maximum(w_sum, torch.full_like(w_sum, 1e-3))
+            # box: CIoU on positives, weighted by the soft target score
+            w_box = torch.where(pos, torch.maximum(soft, torch.full_like(
+                soft, 1e-3)), 0.0)
+            w_sum = w_box.sum(1)
+            l_box = ((1.0 - ciou(pb, tboxes)) * w_box).sum(1) \
+                / torch.maximum(w_sum, torch.full_like(w_sum, 1e-3))
 
-        # dfl against target distances in stride units
-        tdist = torch.stack([anchors[:, 0] - tboxes[..., 0],
-                             anchors[:, 1] - tboxes[..., 1],
-                             tboxes[..., 2] - anchors[:, 0],
-                             tboxes[..., 3] - anchors[:, 1]], -1) \
-            / strides[:, None]
-        l_dfl = (dfl_loss(box_logits.reshape(B, -1, 4, reg_max), tdist,
-                          reg_max) * pos).sum(1) / n_pos
+            # dfl against target distances in stride units
+            tdist = torch.stack([anchors[:, 0] - tboxes[..., 0],
+                                 anchors[:, 1] - tboxes[..., 1],
+                                 tboxes[..., 2] - anchors[:, 0],
+                                 tboxes[..., 3] - anchors[:, 1]], -1) \
+                / strides[:, None]
+            l_dfl = (dfl_loss(box_logits.reshape(B, -1, 4, reg_max), tdist,
+                              reg_max) * pos).sum(1) / n_pos
 
-        if cfg.segment:
-            l_mask = self._mask_loss(out, masks, classes, pos, soft, tgt,
-                                     tboxes, n_pos)
-        else:
-            l_mask = torch.zeros(B, dtype=l_cls.dtype, device=l_cls.device)
-        mask_w = cfg.mask_w if cfg.segment else 0.0
-        loss = (cfg.cls_w * l_cls.mean() + cfg.box_w * l_box.mean()
-                + cfg.dfl_w * l_dfl.mean() + mask_w * l_mask.mean())
-        metrics = {"loss": loss, "cls": l_cls.mean(), "box": l_box.mean(),
-                   "dfl": l_dfl.mean(), "mask": l_mask.mean()}
-        return loss, {k: v.detach() for k, v in metrics.items()}
+            if cfg.segment:
+                l_mask = self._mask_loss(out, masks, classes, pos, soft, tgt,
+                                         tboxes, n_pos)
+            else:
+                l_mask = torch.zeros(B, dtype=l_cls.dtype, device=l_cls.device)
+            mask_w = cfg.mask_w if cfg.segment else 0.0
+            loss = (cfg.cls_w * l_cls.mean() + cfg.box_w * l_box.mean()
+                    + cfg.dfl_w * l_dfl.mean() + mask_w * l_mask.mean())
+            metrics = {"loss": loss, "cls": l_cls.mean(), "box": l_box.mean(),
+                       "dfl": l_dfl.mean(), "mask": l_mask.mean()}
+            return loss, {k: v.detach() for k, v in metrics.items()}
 
     def _mask_loss(self, out, masks, classes, pos, soft, tgt, tboxes, n_pos):
         """Per-anchor mask supervision (ultralytics v8SegmentationLoss
@@ -605,49 +611,52 @@ class Trainer:
         weight_decay))`` on the gradients, then ``apply_updates``: fused
         ``_foreach`` launches, and no wait for the device (the schedule
         and the bias corrections depend on the count alone)."""
-        params = list(self.local_params().values())
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in self._params]
-        if self.mesh is not None:
-            grads = [g.to_local() for g in grads]
-        grads = clip_by_global_norm(grads, _CLIP_NORM, self._model_group)
-        st = self.opt_state
-        mu = [st.mu[n] for n in self._names]
-        nu = [st.nu[n] for n in self._names]
-        lr = self.lr_at(st.count)
-        st.count += 1
-        f32 = np.float32
-        bc1 = float(f32(1.0) - f32(_ADAM_B1) ** f32(st.count))
-        bc2 = float(f32(1.0) - f32(_ADAM_B2) ** f32(st.count))
-        torch._foreach_mul_(mu, _ADAM_B1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - _ADAM_B1)
-        torch._foreach_mul_(nu, _ADAM_B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - _ADAM_B2)
-        denom = torch._foreach_div(nu, bc2)
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, _ADAM_EPS)
-        upd = torch._foreach_div(mu, bc1)
-        torch._foreach_div_(upd, denom)
-        torch._foreach_add_(upd, params, alpha=self.cfg.weight_decay)
-        torch._foreach_mul_(upd, -lr)
-        with torch.no_grad():
-            torch._foreach_add_(params, upd)
+        with span("eitx.train.update", self.device):
+            params = list(self.local_params().values())
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                     for p in self._params]
+            if self.mesh is not None:
+                grads = [g.to_local() for g in grads]
+            grads = clip_by_global_norm(grads, _CLIP_NORM, self._model_group)
+            st = self.opt_state
+            mu = [st.mu[n] for n in self._names]
+            nu = [st.nu[n] for n in self._names]
+            lr = self.lr_at(st.count)
+            st.count += 1
+            f32 = np.float32
+            bc1 = float(f32(1.0) - f32(_ADAM_B1) ** f32(st.count))
+            bc2 = float(f32(1.0) - f32(_ADAM_B2) ** f32(st.count))
+            torch._foreach_mul_(mu, _ADAM_B1)
+            torch._foreach_add_(mu, grads, alpha=1.0 - _ADAM_B1)
+            torch._foreach_mul_(nu, _ADAM_B2)
+            torch._foreach_addcmul_(nu, grads, grads, value=1.0 - _ADAM_B2)
+            denom = torch._foreach_div(nu, bc2)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, _ADAM_EPS)
+            upd = torch._foreach_div(mu, bc1)
+            torch._foreach_div_(upd, denom)
+            torch._foreach_add_(upd, params, alpha=self.cfg.weight_decay)
+            torch._foreach_mul_(upd, -lr)
+            with torch.no_grad():
+                torch._foreach_add_(params, upd)
 
     def train_step(self, batch, device_metrics: bool = False) -> Dict:
         """One optimizer step. With ``device_metrics`` the metric dict
         holds device tensors (no wait for the device); the loop converts
         only when logging."""
-        b = self._device_batch(batch)
-        for p in self._params:
-            p.grad = None
-        loss, metrics = self._loss(b)
-        loss.backward()
-        self._apply_updates()
-        self.step += 1
-        metrics = self._mean_over_data(metrics)
-        if device_metrics:
-            return metrics
-        return {k: float(v) for k, v in metrics.items()}
+        with span("eitx.train.step", self.device):
+            b = self._device_batch(batch)
+            for p in self._params:
+                p.grad = None
+            loss, metrics = self._loss(b)
+            with span("eitx.train.backward", self.device):
+                loss.backward()
+            self._apply_updates()
+            self.step += 1
+            metrics = self._mean_over_data(metrics)
+            if device_metrics:
+                return metrics
+            return {k: float(v) for k, v in metrics.items()}
 
     def eval_loss(self, batch) -> Dict[str, float]:
         """Loss metrics on a batch WITHOUT an optimizer update (validation):
@@ -680,15 +689,17 @@ class EMA:
         self.params = {n: p.detach().clone() for n, p in params.items()}
 
     def update(self, params: Dict[str, torch.Tensor]):
-        self.step += 1
-        d = np.float32(self.decay * (1.0 - float(np.exp(-self.step
-                                                         / self.tau))))
         ema = list(self.params.values())
-        with torch.no_grad():
-            torch._foreach_mul_(ema, float(d))
-            torch._foreach_add_(ema, [params[n].detach() for n in self.params],
-                                alpha=float(np.float32(1.0) - d))
-        return self.params
+        with span("eitx.train.ema", ema[0].device):
+            self.step += 1
+            d = np.float32(self.decay * (1.0 - float(np.exp(-self.step
+                                                             / self.tau))))
+            with torch.no_grad():
+                torch._foreach_mul_(ema, float(d))
+                torch._foreach_add_(
+                    ema, [params[n].detach() for n in self.params],
+                    alpha=float(np.float32(1.0) - d))
+            return self.params
 
 
 def _save(trainer: Trainer, path: str) -> None:

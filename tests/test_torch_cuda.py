@@ -736,3 +736,75 @@ def test_sharded_monitoring_and_group_solve_on_card(nccl_world_of_one):
     alphas = sigma[:, 2]
     for s, v in zip(solvers, sharded_group_solve(solvers, alphas, fmesh)):
         assert torch.equal(v, s.solve(alphas))
+
+
+@pytest.mark.parametrize("host_ops", [False, True],
+                         ids=["card_alone", "card_and_host"])
+def test_train_spans_time_the_card_outside_its_busy_time(dev, host_ops):
+    """Under the benchmark's profiler, of the card's activity alone as the
+    training cell records it or of the host's operators too, the spans
+    record: each phase of two steps carries device seconds, and no range
+    of the program counts as the card's work in the benchmark's trace."""
+    from benchmark.lib.trace import Trace, profile
+    from eitx_torch.core import timing
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.trainer import EMA
+
+    tr = Trainer(TrainConfig(**dict(TRAIN_CFG, assigner="tal")), device=dev)
+    ema = EMA(tr.local_params())
+    batch = _train_batch()
+    tr.train_step(batch, device_metrics=True)
+    torch.cuda.synchronize()
+    timing.clear()
+    with profile(host_ops) as prof:
+        assert torch.autograd._profiler_enabled()
+        for _ in range(2):
+            tr.train_step(batch, device_metrics=True)
+            ema.update(tr.local_params())
+        torch.cuda.synchronize()
+    spans, _ = timing.recorded()
+    timing.clear()
+    for phase in ("step", "forward", "loss", "assign", "backward", "update",
+                  "ema"):
+        s = spans[f"eitx.train.{phase}"]
+        assert s["calls"] == 2 and s["device_s"] > 0, (phase, s)
+    assert spans["eitx.train.step"]["device_s"] > \
+        spans["eitx.train.backward"]["device_s"]
+    device = Trace(prof).device
+    assert device
+    assert not [n for _, _, n in device if n.startswith("eitx.")]
+
+
+def test_fem_spans_of_a_cell_thorax(dev):
+    """One request of the FEM cells' configuration on a thorax of their
+    pool, traced as those cells trace it: bit-equal voltages, one subject,
+    9.4-10.5 MB uploaded (the lung selector alone is 3,072 x 768 float32,
+    9.44 MB), device seconds in the factorisation, and no range of the
+    program among the card's work."""
+    import json
+
+    from benchmark.inputs.thorax import subject_pool
+    from benchmark.lib.trace import Trace, profile
+    from eitx_torch.core import timing
+    from eitx_torch.core.config import SimulationConfig
+    from eitx_torch.fem import simulate_eit_monitoring
+
+    with open(os.path.join(ROOT, "benchmark", "configs",
+                           "thorax-lc7-e16.json")) as fh:
+        cfg = json.load(fh)
+    mesh = subject_pool(cfg["geometry"], 0.03, 1, 2147483659)[0]
+    sim = SimulationConfig(**cfg["simulation"])
+    plain, _ = simulate_eit_monitoring(mesh, sim, device=dev)
+    timing.clear()
+    with profile(True) as prof:
+        traced, _ = simulate_eit_monitoring(mesh, sim, device=dev)
+    spans, counters = timing.recorded()
+    timing.clear()
+    assert np.array_equal(plain, traced)
+    assert counters["eitx.fem.subjects"] == 1
+    assert 9.4e6 <= counters["eitx.fem.upload_bytes"] <= 10.5e6, counters
+    for stage in ("assembly", "setup.factor", "solve"):
+        assert spans[f"eitx.fem.{stage}"]["device_s"] > 0, stage
+    device = Trace(prof).device
+    assert device
+    assert not [n for _, _, n in device if n.startswith("eitx.")]

@@ -20,10 +20,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 @pytest.fixture(scope="module", autouse=True)
 def one_thread():
     """One torch thread: parallel test workers share the CPU."""
-    n = torch.get_num_threads()
+    # never set back above 1: a batched float32 linalg.solve (oneMKL)
+    # later in the same worker can then hang
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _load(package: str, name: str):

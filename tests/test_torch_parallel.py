@@ -92,10 +92,9 @@ def readings(jax_side, tmp_path_factory):
 
 @pytest.fixture(scope="module", autouse=True)
 def one_torch_thread():
-    n = torch.get_num_threads()
+    # never set back above 1: a batched float32 linalg.solve (oneMKL)
+    # later in the same worker can then hang
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # --- mesh, batch, parameters ------------------------------------------------

@@ -45,10 +45,9 @@ CPU = "cpu"
 def one_torch_thread():
     """The networks' CPU calls on one thread (the test workers share the
     cores)."""
-    n = torch.get_num_threads()
+    # never set back above 1: a batched float32 linalg.solve (oneMKL)
+    # later in the same worker can then hang
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _phantom_hu(h=128, w=128):

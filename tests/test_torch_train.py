@@ -69,10 +69,9 @@ def one_torch_thread():
     """The network's CPU steps on one thread: the parallel test workers
     share the cores, and torch's thread pools in every worker at once
     spin against each other."""
-    n = torch.get_num_threads()
+    # never set back above 1: a batched float32 linalg.solve (oneMKL)
+    # later in the same worker can then hang
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

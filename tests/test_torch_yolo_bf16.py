@@ -67,10 +67,9 @@ LABEL_AGREEMENT = 0.9995
 def one_thread():
     """One torch thread: the bounds were measured so (oneDNN's sums may
     block otherwise), and parallel test workers share the CPU."""
-    n = torch.get_num_threads()
+    # never set back above 1: a batched float32 linalg.solve (oneMKL)
+    # later in the same worker can then hang
     torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _phantom_256():
