@@ -5,6 +5,10 @@ reference (model_generator.py:156-172): n electrodes equally spaced along
 the mesh boundary perimeter, the first at the boundary node whose angle from
 the mesh centroid is closest to ``starting_angle`` (180 degrees in the live
 pipeline), walking the boundary loop in counter-clockwise orientation.
+
+The boundary edges and the connectivity check are computed by numpy and
+scipy with no Python loop over triangles (``boundary_loop``); Python walks
+only the boundary loop itself.
 """
 
 from __future__ import annotations
@@ -30,14 +34,25 @@ def boundary_loop(
     outer-face turn rule, and interior hole loops are ignored — the
     returned loop is the OUTER boundary, which is what electrode
     placement needs. Pinch nodes appear in the loop once per visit.
+
+    Each edge is counted by one int64 key ``min * n + max`` (``n`` past the
+    largest node index) in a 1-D ``np.unique``; the boundary keeps the
+    edges' row order. The geometric walk first rejects a disconnected
+    triangulation, counting the components of the triangles' node graph
+    with scipy's compiled ``connected_components`` (triangles that share
+    only a vertex are one component).
     """
     tris = np.asarray(tris)
     edges = np.concatenate(
         [tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]], axis=0
     )
-    key = np.sort(edges, axis=1)
+    if edges.shape[0] == 0:
+        raise MeshingError("mesh has no boundary edges")
+    n = np.int64(tris.max()) + 1
+    lo = np.minimum(edges[:, 0], edges[:, 1]).astype(np.int64)
+    hi = np.maximum(edges[:, 0], edges[:, 1]).astype(np.int64)
     _, inv, counts = np.unique(
-        key, axis=0, return_inverse=True, return_counts=True
+        lo * n + hi, return_inverse=True, return_counts=True
     )
     boundary = edges[counts[inv] == 1]
     if boundary.shape[0] == 0:
@@ -83,24 +98,21 @@ def boundary_loop(
     # below would silently trace only the fragment holding the
     # bottommost node and electrodes would all land on one fragment
     # (the manifold path guards the same failure via its loop-coverage
-    # check). Union-find over node-sharing triangles.
-    used = np.unique(tris)
-    index_of = {int(n): i for i, n in enumerate(used)}
-    parent = np.arange(used.size)
+    # check). Components of the graph joining each triangle's first node
+    # to its other two, over the used nodes relabelled 0..k-1.
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
 
-    def _find(i):
-        while parent[i] != i:
-            parent[i] = parent[parent[i]]
-            i = parent[i]
-        return i
-
-    for t in tris:
-        a = _find(index_of[int(t[0])])
-        for v in (int(t[1]), int(t[2])):
-            b = _find(index_of[v])
-            if a != b:
-                parent[b] = a
-    n_components = len({_find(i) for i in range(used.size)})
+    used, local = np.unique(tris, return_inverse=True)
+    local = local.reshape(tris.shape)
+    graph = coo_matrix(
+        (
+            np.ones(2 * local.shape[0]),
+            (np.tile(local[:, 0], 2), local[:, 1:].T.ravel()),
+        ),
+        shape=(used.size, used.size),
+    )
+    n_components, _ = connected_components(graph, directed=False)
     if n_components > 1:
         raise MeshingError(
             f"mesh has {n_components} disconnected components; electrode "
