@@ -1,9 +1,12 @@
-"""YOLOv11 building blocks as ``nn.Module``s (NCHW).
+"""YOLOv11 and YOLO12 building blocks as ``nn.Module``s (NCHW).
 
-Port of eitx/models/yolo/blocks.py. Module names follow the ultralytics
-state dict (``conv``/``bn``, ``cv1``/``cv2``/``cv3``, ``m``, ``ffn``,
-``qkv``/``proj``/``pe``), so the checkpoint mapping in checkpoint.py is
-the inverse of the JAX package's ``convert._flax_path``.
+Port of eitx/models/yolo/blocks.py, plus YOLO12's area attention
+(``AAttn``, ``ABlock``, ``A2C2f``; arXiv:2502.12524 and ultralytics'
+``nn/modules/block.py``), which eitx does not have. Module names follow
+the ultralytics state dict (``conv``/``bn``, ``cv1``/``cv2``/``cv3``,
+``m``, ``ffn``, ``attn``/``mlp``, ``qkv``/``proj``/``pe``, ``gamma``), so
+the checkpoint mapping in checkpoint.py is the inverse of the JAX
+package's ``convert._flax_path``.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ...core.timing import count, span
 from . import rounding
 
 
@@ -35,6 +39,10 @@ class BatchNorm2d(nn.BatchNorm2d):
     in bfloat16 it is flax's, operation by operation (``_eval_bf16``)."""
 
     flax_momentum = 0.97
+    # train by torch's fused batch norm (``_fused_train``) when no
+    # ``sync_group`` is set; YOLO12, which has no eitx network to match
+    # bit for bit, sets it
+    fused = False
     # the process group of the ranks that hold the other images of the
     # batch (the mesh's data axis; ``Trainer(mesh=...)`` sets it): the
     # batch statistics are then the global batch's, as under eitx's
@@ -49,6 +57,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             if x.dtype == torch.bfloat16:
                 return self._eval_bf16(x)
             return super().forward(x)
+        if self.sync_group is None and self.fused:
+            return self._fused_train(x)
         if self.sync_group is None:
             mean = x.mean((0, 2, 3))
             var = torch.clamp_min((x * x).mean((0, 2, 3)) - mean * mean, 0.0)
@@ -61,6 +71,22 @@ class BatchNorm2d(nn.BatchNorm2d):
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None, None]) * mul[:, None, None] \
             + self.bias[:, None, None]
+
+    def _fused_train(self, x):
+        """The training output above in exact arithmetic, by one fused
+        ``native_batch_norm`` (the batch's mean and biased variance by
+        Welford's pass, not flax's ``mean(x^2) - mean(x)^2``) and one
+        autograd node in place of about seventy operations, forward and
+        backward; the running statistics move by flax's rule on the biased variance,
+        recovered from the inverse standard deviation."""
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        with torch.no_grad():
+            var = (invstd.pow(-2) - self.eps).clamp_min_(0.0)
+            m = self.flax_momentum
+            self.running_mean.mul_(m).add_(mean, alpha=1.0 - m)
+            self.running_var.mul_(m).add_(var, alpha=1.0 - m)
+        return y
 
     def _eval_bf16(self, x):
         """flax's ``BatchNorm`` on bfloat16 statistics and input: each
@@ -172,18 +198,23 @@ class C3k(nn.Module):
 
 
 class C3k2(nn.Module):
-    """C2f whose inner blocks are C3k (c3k=True) or Bottleneck."""
+    """C2f whose inner blocks are C3k (c3k=True) or Bottleneck.
+
+    ``bottleneck_e`` is the plain Bottleneck's hidden width: eitx's (and
+    so the port's YOLOv11's) 1.0, C2f's; ultralytics' C3k2 builds it at
+    Bottleneck's default 0.5, which YOLO12 uses."""
 
     def __init__(self, c1: int, c2: int, n: int = 1, c3k: bool = False,
-                 e: float = 0.5, g: int = 1, shortcut: bool = True):
+                 e: float = 0.5, g: int = 1, shortcut: bool = True,
+                 bottleneck_e: float = 1.0):
         super().__init__()
         self.c = int(c2 * e)
         self.cv1 = Conv(c1, 2 * self.c, 1, 1)
         self.cv2 = Conv((2 + n) * self.c, c2, 1)
         self.m = nn.ModuleList(
             C3k(self.c, self.c, 2, shortcut, g) if c3k
-            # C2f bottlenecks run at full hidden width (e=1.0)
-            else Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0)
+            else Bottleneck(self.c, self.c, shortcut, g, k=(3, 3),
+                            e=bottleneck_e)
             for _ in range(n)
         )
 
@@ -263,3 +294,105 @@ class C2PSA(nn.Module):
     def forward(self, x):
         a, b = self.cv1(x).split((self.c, self.c), dim=1)
         return self.cv2(torch.cat((a, self.m(b)), 1))
+
+
+class AAttn(nn.Module):
+    """YOLO12's area attention: multi-head self-attention within each of
+    ``area`` stripes of H / area whole rows (over the whole map at area
+    1), and a depthwise 7x7 "position perceiver" on the values added to
+    the output before the projection.
+
+    ``qkv`` is a 1x1 Conv to 3 * dim channels laid out per head (head j:
+    q, k, v of ``head_dim`` each from channel 3 * head_dim * j, as
+    ultralytics lays them out); tokens are taken row-major, so the
+    stripes are contiguous runs of H * W / area tokens. Plain matrix
+    products and softmax: deterministic on the card, as the train step
+    must be."""
+
+    def __init__(self, dim: int, num_heads: int, area: int = 1):
+        super().__init__()
+        self.area = area
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.qkv = Conv(dim, 3 * dim, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 7, 1, g=dim, act=False)
+
+    def forward(self, x):
+        with span("eitx.train.area_attn", x.device):
+            B, C, H, W = x.shape
+            a, h, hd = self.area, self.num_heads, self.head_dim
+            if (H * W) % a:
+                raise ValueError(f"a {H}x{W} map does not split into {a} "
+                                 "areas of whole tokens")
+            n = H * W // a
+            count("eitx.train.attn_scores", B * a * h * n * n)
+            # (B, 3C, N) -> (B, a, h, 3 hd, n): channel 3 hd j + t, token
+            # s n + m of stripe s
+            qkv = self.qkv(x).view(B, h, 3 * hd, a, n).permute(0, 3, 1, 2, 4)
+            q, k, v = qkv.split(hd, dim=3)
+            attn = (q.transpose(-2, -1) @ k) * (hd ** -0.5)
+            o = v @ attn.softmax(dim=-1).transpose(-2, -1)
+            # (B, a, h, hd, n) -> (B, C, H, W): channel hd j + i
+            o = o.permute(0, 2, 3, 1, 4).reshape(B, C, H, W)
+            v = v.permute(0, 2, 3, 1, 4).reshape(B, C, H, W)
+            return self.proj(o + self.pe(v))
+
+
+class ABlock(nn.Module):
+    """Area attention and a 1x1 MLP (hidden ``int(dim * mlp_ratio)``),
+    each added to its input."""
+
+    def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 1.2,
+                 area: int = 1):
+        super().__init__()
+        self.attn = AAttn(dim, num_heads, area)
+        hidden = int(dim * mlp_ratio)
+        self.mlp = nn.Sequential(Conv(dim, hidden, 1),
+                                 Conv(hidden, dim, 1, act=False))
+
+    def forward(self, x):
+        x = x + self.attn(x)
+        return x + self.mlp(x)
+
+
+class A2C2f(nn.Module):
+    """YOLO12's residual ELAN block: a 1x1 Conv to ``c_ = c2 * e``, ``n``
+    stages (two ABlocks of ``c_ / 32`` heads each with ``a2``, else a
+    C3k), every stage's output concatenated and fused by a 1x1 Conv. With
+    ``a2`` and ``residual`` (scales l and x) the output is scaled per
+    channel by ``gamma`` (layer scale) and added to the input."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, a2: bool = True,
+                 area: int = 1, residual: bool = False,
+                 mlp_ratio: float = 2.0, e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        if c_ % 32:
+            raise ValueError(f"A2C2f's hidden width {c_} is not a multiple "
+                             "of 32 (heads of 32)")
+        self.a2 = a2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv((1 + n) * c_, c2, 1)
+        self.gamma = (nn.Parameter(torch.full((c2,), 0.01))
+                      if a2 and residual else None)
+        self.m = nn.ModuleList(
+            nn.Sequential(*(ABlock(c_, c_ // 32, mlp_ratio, area)
+                            for _ in range(2)))
+            if a2 else C3k(c_, c_, 2)
+            for _ in range(n)
+        )
+
+    def _forward(self, x):
+        y = [self.cv1(x)]
+        y.extend(m(y[-1]) for m in self.m)
+        y = self.cv2(torch.cat(y, 1))
+        if self.gamma is None:
+            return y
+        return x + self.gamma[:, None, None] * y
+
+    def forward(self, x):
+        if not self.a2:
+            return self._forward(x)
+        with span("eitx.train.a2c2f", x.device):
+            return self._forward(x)

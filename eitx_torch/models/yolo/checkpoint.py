@@ -254,6 +254,7 @@ _LEAVES = {
     ("params", "kernel"): "weight",
     ("params", "scale"): "weight",
     ("params", "bias"): "bias",
+    ("params", "gamma"): "gamma",
     ("batch_stats", "mean"): "running_mean",
     ("batch_stats", "var"): "running_var",
 }
@@ -308,8 +309,8 @@ def _flax_leaf(leaf: str, ndim: int) -> Tuple[str, str]:
     """torch leaf -> (flax collection, flax leaf)."""
     if leaf == "weight":
         return "params", "kernel" if ndim == 4 else "scale"
-    if leaf == "bias":
-        return "params", "bias"
+    if leaf in ("bias", "gamma"):  # gamma: YOLO12's layer scale
+        return "params", leaf
     if leaf == "running_mean":
         return "batch_stats", "mean"
     if leaf == "running_var":

@@ -1,4 +1,5 @@
-"""flax's initial parameters for the port's YOLOv11, from a seed.
+"""flax's initial parameters for the port's YOLOv11, from a seed; the
+same rule for YOLO12, drawn by torch.
 
 eitx builds an untrained network as ``YoloV11(spec).init(PRNGKey(seed),
 x)`` (eitx/train/trainer.py:172-176, eitx/models/yolo/infer.py:132-135).
@@ -30,6 +31,14 @@ the ``meta`` device, which allocates and draws nothing. A process keeps
 the last few networks' host arrays (``_flax_init_trees``): building a
 second runner or trainer of the same spec and seed copies them instead of
 drawing again. Neither function touches torch's global random state.
+
+YOLO12 (``YoloV12``) has no eitx network to match: ``torch_init_state``
+draws its kernels from a CPU ``torch.Generator`` seeded with the seed,
+by the same rule (lecun-normal truncated at 2 standard deviations over
+each kernel's fan-in: everything but its first axis), BatchNorm scales
+and variances one, A2C2f's layer scale ``gamma`` 0.01 (ultralytics'
+initial value), every other vector zero. The draws are on the host, so
+the card and the CPU start from the same bits.
 """
 
 from __future__ import annotations
@@ -44,7 +53,7 @@ import torch
 
 from ...core import prng
 from .checkpoint import flax_to_torch_state, load_state, torch_to_flax_tree
-from .model import YoloSpec, YoloV11
+from .model import Yolo12Spec, YoloSpec, YoloV11, YoloV12
 
 _TRUNC_STD = np.float32(0.87962566103423978)  # std of N(0, 1) cut at +-2
 
@@ -106,4 +115,41 @@ def flax_init_model(spec: YoloSpec, seed: int) -> YoloV11:
     with torch.random.fork_rng(devices=[]):
         model = YoloV11(spec)
     load_state(model, flax_init_state(spec, seed))
+    return model
+
+
+def torch_init_state(model: torch.nn.Module, seed: int
+                     ) -> Dict[str, torch.Tensor]:
+    """Initial state dict (CPU tensors, float32) for ``model``'s names and
+    shapes, drawn in their order from a CPU generator seeded with
+    ``seed``; BatchNorm's ``num_batches_tracked`` left out."""
+    g = torch.Generator().manual_seed(int(seed))
+    out = {}
+    for name, t in model.state_dict().items():
+        if name.endswith("num_batches_tracked"):
+            continue
+        if t.dim() >= 2:
+            w = torch.empty(t.shape)
+            torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=g)
+            std = math.sqrt(math.prod(t.shape[1:])) * float(_TRUNC_STD)
+            out[name] = w.div_(std)
+        elif name.endswith("gamma"):
+            out[name] = torch.full(t.shape, 0.01)
+        else:  # BatchNorm's scale and variance one, the rest zero
+            out[name] = torch.full(t.shape, float(name.endswith(
+                ("bn.weight", "running_var"))))
+    return out
+
+
+def yolo12_init_model(spec: Yolo12Spec, seed: int) -> YoloV12:
+    """A ``YoloV12(spec)`` on the CPU holding ``torch_init_state(...,
+    seed)``; built on the ``meta`` device, so torch's global random state
+    is left alone and nothing is drawn twice."""
+    with torch.device("meta"):
+        model = YoloV12(spec)
+    model.to_empty(device="cpu")
+    for name, buf in model.named_buffers():
+        if name.endswith("num_batches_tracked"):
+            buf.zero_()
+    load_state(model, torch_init_state(model, seed))
     return model

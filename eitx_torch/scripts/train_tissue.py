@@ -7,7 +7,10 @@ thorax phantoms -> pseudo-labels -> Trainer (train/trainer.py) -> the
 package's TissueSegmenter(weights=...)) and a held-out IoU report against
 the pseudo-labels (the reference's own quality metric,
 scripts/accuracy_calculate.py). Everything runs on ``--device``: the
-card unless the caller asks for the CPU.
+card unless the caller asks for the CPU. ``--arch yolo12`` trains
+ultralytics' YOLO12 segmenter (area attention) on the same trainer; no
+serving runner builds that network yet, so its run writes both files but
+takes no held-out report.
 
 Usage:
     python -m eitx_torch.scripts.train_tissue --steps 1200 --batch 8 \
@@ -195,6 +198,10 @@ def main(argv=None):
                         "+ batch stats) from <out>.train and run --steps "
                         "MORE steps; the EMA restarts from the restored "
                         "params and re-converges within ~2*tau steps")
+    p.add_argument("--arch", default="yolo11", choices=("yolo11", "yolo12"),
+                   help="the network (TrainConfig.arch): eitx's YOLOv11, or "
+                        "YOLO12 with area attention (trained and written, "
+                        "not evaluated: no serving runner builds it)")
     p.add_argument("--device", default="cuda",
                    help="where the phantoms are labelled and the network "
                         "trains and is evaluated (cpu only when asked)")
@@ -275,7 +282,7 @@ def main(argv=None):
         resume_tree = restore_checkpoint_tree(args.out + ".train")
         start_step = int(resume_tree["step"])
     cfg = TrainConfig(
-        imgsz=args.imgsz, variant=args.variant, lr=args.lr,
+        imgsz=args.imgsz, variant=args.variant, lr=args.lr, arch=args.arch,
         total_steps=start_step + args.steps,
         warmup_steps=min(100, args.steps // 10),
         max_instances=args.max_instances, mask_topk=args.mask_topk,
@@ -376,19 +383,21 @@ def main(argv=None):
             "mask_class_w": (args.mask_class_weights or None),
         },
     }
+    if args.arch != "yolo11":
+        payload["meta"]["arch"] = args.arch
     write_msgpack_checkpoint(args.out, payload)
     log.info("saved %s (train wall %.1fs)", args.out, time.time() - t0)
 
-    report = evaluate_checkpoint(
+    report = {} if args.arch != "yolo11" else evaluate_checkpoint(
         args.out, args.imgsz, args.variant, n_eval=args.eval_n,
         device=device,
     )
-    if args.rich:
+    if args.rich and report:
         report["rich_distribution_eval"] = evaluate_checkpoint(
             args.out, args.imgsz, args.variant, n_eval=args.eval_n,
             rich=True, device=device,
         )
-    if args.anatomy_frac > 0:
+    if args.anatomy_frac > 0 and report:
         report["anatomy_distribution_eval"] = evaluate_checkpoint(
             args.out, args.imgsz, args.variant, n_eval=args.eval_n,
             anatomy=True, device=device,

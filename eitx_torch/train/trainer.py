@@ -1,4 +1,4 @@
-"""Trainer for the YOLOv11 segmenter and the rib detector.
+"""Trainer for the YOLOv11 segmenter and the rib detector, and for YOLO12.
 
 Port of eitx/train/trainer.py: ``TrainConfig``, ``TrainState``,
 ``_anchors_for`` (:82), the center assigner ``_assign`` (:96), the
@@ -61,9 +61,9 @@ import torch.nn.functional as F
 from ..core.device import resolve_device
 from ..core.timing import span
 from ..models.yolo.blocks import BatchNorm2d
-from ..models.yolo.init import flax_init_model
+from ..models.yolo.init import flax_init_model, yolo12_init_model
 from ..models.yolo.resize import resize_bilinear
-from ..models.yolo.model import yolov11_spec
+from ..models.yolo.model import yolov11_spec, yolov12_spec
 from ..models.yolo.post import _dfl
 from .losses import ciou, dfl_loss, optax_sigmoid_bce
 
@@ -106,6 +106,9 @@ class TrainConfig:
     proto_stride: int = 4
     # per-class mask-loss weights (len-nc tuple); None = uniform
     mask_class_w: Optional[tuple] = None
+    # the network: "yolo11" (eitx's YoloV11) or "yolo12" (YoloV12, area
+    # attention); the loss, the step and the state are the same for both
+    arch: str = "yolo11"
 
 
 @dataclass
@@ -300,8 +303,13 @@ def _check_mesh(mesh, device: torch.device) -> None:
                          f"got axes {mesh.mesh_dim_names}")
 
 
+# TrainConfig.arch -> (the spec of a variant, the initialised network)
+_NETWORKS = {"yolo11": (yolov11_spec, flax_init_model),
+             "yolo12": (yolov12_spec, yolo12_init_model)}
+
+
 class Trainer:
-    """One YOLOv11 network, its optimizer state and the train step, on
+    """One network (``cfg.arch``), its optimizer state and the train step, on
     ``device`` (the card unless the caller asks for the CPU), or, with
     ``mesh`` (a (data, model) ``DeviceMesh``), this rank's part of the
     data- and FSDP-parallel step; every rank of the mesh builds its
@@ -312,10 +320,15 @@ class Trainer:
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device)
-        spec = yolov11_spec(cfg.variant, nc=cfg.nc, segment=cfg.segment,
-                            proto_stride=cfg.proto_stride)
-        # eitx's initial parameters for the seed, drawn on the host
-        self.model = flax_init_model(spec, seed).to(self.device).train()
+        if cfg.arch not in _NETWORKS:
+            raise ValueError(f"TrainConfig.arch: one of {sorted(_NETWORKS)}, "
+                             f"got {cfg.arch!r}")
+        make_spec, init_model = _NETWORKS[cfg.arch]
+        spec = make_spec(cfg.variant, nc=cfg.nc, segment=cfg.segment,
+                         proto_stride=cfg.proto_stride)
+        # the initial parameters for the seed, drawn on the host: eitx's for
+        # YOLOv11, the same rule drawn by torch for YOLO12
+        self.model = init_model(spec, seed).to(self.device).train()
         self._data_group = self._model_group = None
         if mesh is not None:
             from ..parallel.shard import shard_params_fsdp

@@ -600,6 +600,54 @@ def test_train_runs_from_one_seed_are_equal_on_card(dev):
     assert not chip_smoke.digests_differ(a, b)
 
 
+Y12_CFG = dict(TRAIN_CFG, arch="yolo12", lr=1e-4)
+
+
+@pytest.mark.parametrize("variant", ["n", "l"])
+def test_yolo12_runs_from_one_seed_are_equal_on_card(dev, variant):
+    """Two YOLO12 trainers from one seed, 2 steps of one stream each
+    through fit: every parameter, statistic, moment and EMA leaf equal to
+    the bit (the area attention is plain matmul and softmax, and cuDNN's
+    algorithms are the deterministic ones)."""
+    from eitx_torch.train import TrainConfig, Trainer
+    from eitx_torch.train.trainer import fit
+
+    runs = []
+    for _ in range(2):
+        tr = Trainer(TrainConfig(**dict(Y12_CFG, variant=variant)), seed=0,
+                     device=dev)
+        metrics, ema = fit(tr, _stream(dev), 2, log_every=0)
+        runs.append((metrics, chip_smoke.state_digests(tr, ema)))
+    (m_a, a), (m_b, b) = runs
+    assert m_a == m_b and any(n.startswith("ema/") for n in a)
+    assert ("params/model.6.gamma" in a) == (variant == "l")
+    assert not chip_smoke.digests_differ(a, b)
+
+
+def test_yolo12_step_on_card_equals_cpu(dev):
+    """One YOLO12-n step at 64^2, batch 2, from one seed on the card and
+    on the CPU: each loss term within rtol 1e-4 and every parameter after
+    the step within 2 lr of the CPU's (cuDNN's float32 orders against
+    oneDNN's; AdamW's first step is ~lr * sign(g), so an element whose
+    gradient is rounding may move the other way), with at most 1e-3 of
+    the elements differing by more than lr."""
+    from eitx_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(**dict(Y12_CFG, variant="n"))
+    card, cpu = Trainer(cfg, device=dev), Trainer(cfg, device="cpu")
+    m_card, m_cpu = card.train_step(_train_batch()), cpu.train_step(
+        _train_batch())
+    for k, v in m_cpu.items():
+        assert abs(m_card[k] - v) <= 1e-4 * abs(v), (k, m_card[k], v)
+    lr, moved, total = cfg.lr, 0, 0
+    for n, p in cpu.state.params.items():
+        d = (card.state.params[n].detach().cpu() - p.detach()).abs()
+        assert float(d.max()) <= 2.0 * lr * (1 + 1e-3), n
+        moved += int((d > lr).sum())
+        total += d.numel()
+    assert moved <= 1e-3 * total
+
+
 def test_train_checkpoint_round_trip_on_card(dev, tmp_path):
     """A .train file written on the card loads into a fresh trainer on the
     card equal on every tensor, and the resumed run continues the

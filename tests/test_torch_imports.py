@@ -19,6 +19,12 @@ CARD_SCRIPTS = [os.path.join(ROOT, "chip_smoke.py")] + [
         "torch_train_repro.py", "torch_train_turns.py", "torch_seg_span.py",
         "torch_parallel_cards.py", "torch_card_vs_cpu.py",
         "torch_prng_check.py")]
+# the YOLO12 cell's files of the benchmark, which also run on that machine
+BENCH_YOLO12 = [os.path.join(ROOT, "benchmark", f) for f in (
+    "reference/yolo12/__init__.py", "reference/yolo12/model.py",
+    "reference/yolo12/trainer.py", "drivers/yolo12_train.py",
+    "lib/area_attn.py", "metrics/train.a2c2f_ms.py",
+    "metrics/train.area_attn_ms.py", "metrics/train.area_attn_roofline.py")]
 
 MODULES = [
     "eitx_torch",
@@ -48,6 +54,8 @@ MODULES = [
     "eitx_torch.scripts.train_ribs",
     "eitx_torch.models.yolo.convert",
     "eitx_torch.models.yolo.init",
+    "eitx_torch.models.yolo.blocks",
+    "eitx_torch.models.yolo.model",
     "eitx_torch.models.yolo.ptread",
     "eitx_torch.parallel",
     "eitx_torch.parallel.dryrun",
@@ -84,6 +92,7 @@ def _sources():
                     yield os.path.join(d, f)
     yield BENCH
     yield from CARD_SCRIPTS
+    yield from BENCH_YOLO12
 
 
 @pytest.mark.parametrize(
